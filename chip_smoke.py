@@ -5,22 +5,42 @@
 Phases, in order; any failure ends the run with a nonzero exit:
 
   1. device: require CUDA; print the card's name and power limit;
-  2. build: compile every PDIP kernel specialisation the run uses (nvcc,
-     sm_90a) and print the build seconds and the ptxas register/spill report;
-  3. kernel vs its plain PyTorch version on the card, on the quadrotor
-     constraint batch at Xref for 128 scenarios (7 obstacle groups, 140,800
-     problems; cold, warm, warm+skip, f32) and on the golden pair batch (f64,
-     against tests/goldens/pairs.json); times from CUDA events;
+  2. build: compile every kernel specialisation the run uses, all at once
+     (nvcc, sm_90a): the PDIP kernel for each layout and dtype, and the FMA
+     probe in float32 and float64; print the build seconds and the ptxas
+     register/spill report;
+  3. the PDIP kernel vs its plain PyTorch version on the card, on the
+     quadrotor constraint batch at Xref for 128 scenarios (7 obstacle groups,
+     140,800 problems; cold, warm, warm+skip, f32) and on the golden pair
+     batch (f64, against tests/goldens/pairs.json); times from CUDA events;
+     the same checks run on the cone's batch in phase 7;
   4. the main path: the f32 quadrotor (N=100, 11 obstacles) solved for 128
      perturbed scenarios through the kernel, checked for convergence and,
      independently, for collision-free final trajectories; then the f64 piano
      mover against its golden trajectory;
-  5. a JSON line of kernel results, then the last line
+  5. the FMA probe vs its plain version and the closed form on the card, on
+     random lanes and on the inputs of both grids the roofline's ``peak``
+     launches; its SASS (64 FMAs per loop pass); then ``peak`` at those two
+     grid sizes and the roofline's ``kernel``: per-group utilization of the
+     PDIP kernel;
+  6. proximity: the 27 golden pairs through ``proximity_alpha`` (f64) and
+     their envelope gradients through ``.backward()``; each pair's alpha,
+     x, z and iteration count on the card against the CPU;
+  7. cone through wall: the PDIP kernel vs its plain version on the cone's
+     constraint batch at 32 perturbed initial rollouts (f32 and f64), the
+     f64 solve against its reference trajectory, then the f32 batch of the
+     32 perturbed scenarios (at most 80 ALTRO iterations);
+  8. MPC: the f64 piano with and without dual warm starts, then the
+     closed-loop quadrotor at 128 scenarios (horizon 40, 10 ticks);
+  9. a JSON line of kernel results, then the last line
      {"ok": true, "device": {...}}.
 
-A detailed record goes to chiprun_out/chip_smoke.json.
+Each path of phases 4-8 runs with every kernel's launch count set to 0 just
+before it and read just after.  A detailed record goes to
+chiprun_out/chip_smoke.json.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -33,7 +53,12 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BATCH = 128
 DEVICE = "cuda:0"
-TPU_KERNEL = "dcol_tpu/ops/pdip_pallas.py:464"
+PDIP_TPU_KERNEL = "dcol_tpu/ops/pdip_pallas.py:464"
+FMA_TPU_KERNEL = "tools/roofline.py:231"
+F32, F64 = torch.float32, torch.float64
+CONE_F32_MAX_ITERS = 80
+# proximity on the card vs on the CPU, f64 at tol 1e-10: x and z
+PROX_RTOL, PROX_ATOL = 1e-8, 1e-8
 
 
 def log(*a):
@@ -58,16 +83,11 @@ def cuda_ms(fn, reps=3):
     return t0.elapsed_time(t1) / reps
 
 
-def golden_batch(dtype, device):
-    """The sphere-robot golden pairs padded to one layout (the batch of
-    tests/test_pdip_pallas.py) and their reference alphas."""
-    from dcol_tpu_torch.geometry import assembly, primitives as prim
-    from dcol_tpu_torch.ops.cones import ConeLayout
+def golden_shapes():
+    from dcol_tpu_torch.geometry import primitives as prim
 
-    with open(os.path.join(ROOT, "tests", "goldens", "pairs.json")) as f:
-        cases = [c for c in json.load(f) if c["k1"] == "sphere"]
     A, b = prim.n_sided_polygon(5, 0.6)
-    shapes = {
+    return {
         "polytope": prim.rect_prism(2.5, 0.15, 0.01),
         "sphere": prim.sphere(0.8),
         "cone": prim.cone(2.0, np.deg2rad(22)),
@@ -75,6 +95,21 @@ def golden_batch(dtype, device):
         "cylinder": prim.cylinder(0.6, 3.0),
         "polygon": prim.polygon(A, b, 0.2),
     }
+
+
+def golden_cases():
+    with open(os.path.join(ROOT, "tests", "goldens", "pairs.json")) as f:
+        return json.load(f)
+
+
+def golden_batch(dtype, device):
+    """The sphere-robot golden pairs padded to one layout (the batch of
+    tests/test_pdip_pallas.py) and their reference alphas."""
+    from dcol_tpu_torch.geometry import assembly
+    from dcol_tpu_torch.ops.cones import ConeLayout
+
+    cases = [c for c in golden_cases() if c["k1"] == "sphere"]
+    shapes = golden_shapes()
     robot = shapes["sphere"]
     obs = [shapes[c["k2"]] for c in cases]
     nv, n_ort = assembly.scene_dims(robot, obs)
@@ -88,6 +123,572 @@ def golden_batch(dtype, device):
     lay = ConeLayout(n_ort, assembly.S_PAD, assembly.S_PAD)
     gold = np.array([c["alpha"] for c in cases])
     return torch.stack(cs), torch.stack(Gs), torch.stack(hs), lay, gold
+
+
+class Run:
+    """State shared by the phases: the device, the record written to
+    chiprun_out/, and the launch counts of every path."""
+
+    def __init__(self, dev, smi):
+        self.dev = dev
+        self.record = {"device": smi, "torch": torch.__version__,
+                       "paths": {}}
+
+    def path(self, name, fn, kernels):
+        """Run one path with every kernel's launch count set to 0 just
+        before it and read just after; fail unless each kernel in
+        ``kernels`` launched."""
+        from dcol_tpu_torch.ops import fma_peak, pdip_cuda
+
+        torch.cuda.synchronize()
+        pdip_cuda.launches = 0
+        fma_peak.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {"pdip": pdip_cuda.launches, "fma_peak": fma_peak.launches}
+        self.record["paths"][name] = dict(counts, wall_s=wall)
+        log(f"[launches] {name}: {counts} in {wall:.3f} s")
+        for k in kernels:
+            check(counts[k] > 0, f"path {name!r} launched no {k} kernel")
+        return out, wall
+
+    def launches(self, kernel):
+        return sum(p[kernel] for p in self.record["paths"].values())
+
+
+# -- 2. build ----------------------------------------------------------------
+
+def phase_build(run):
+    from dcol_tpu_torch.ops import fma_peak, nvcc_build, pdip_cuda
+    from dcol_tpu_torch.ops.cones import ConeLayout
+    from dcol_tpu_torch.ops.proximity import pair_layouts
+    from dcol_tpu_torch.systems import (
+        cone_through_wall, piano_mover, quadrotor)
+
+    def scene_specs(mod, dtype):
+        sys_ = mod.make_system()
+        return [(dtype, lay.nv, ConeLayout(lay.n_ort, lay.s1, lay.s2))
+                for lay, _ in sys_.scene.groups]
+
+    shapes = golden_shapes()
+    _, gG, _, glay, _ = golden_batch(F64, "cpu")
+    specs = scene_specs(quadrotor, F32)
+    specs.append((F64, gG.shape[-1], glay))
+    specs += scene_specs(piano_mover, F64)
+    specs += scene_specs(cone_through_wall, F32)
+    specs += scene_specs(cone_through_wall, F64)
+    for case in golden_cases():
+        pl, cl = pair_layouts(shapes[case["k1"]], shapes[case["k2"]])
+        specs.append((F64, pl.nv, cl))
+    specs = list(dict.fromkeys(specs))
+    jobs = [lambda a=a: pdip_cuda.build(*a) for a in specs]
+    jobs += [lambda d=d: fma_peak.build(d) for d in (F32, F64)]
+    t0 = time.perf_counter()
+    builds = nvcc_build.run_parallel(jobs)
+    build_wall = time.perf_counter() - t0
+    log(f"[build] {len(builds)} specialisations in {build_wall:.2f} s wall")
+    run.record["build_wall_s"] = build_wall
+    run.record["builds"] = []
+    for b in builds:
+        if b.key[0] == "pdip":
+            _, dt, nv, n_ort, s1, s2 = b.key
+            name = f"pdip {str(dt)[6:]} nv={nv} n_ort={n_ort} s1={s1} s2={s2}"
+        else:
+            name = f"fma_peak {str(b.key[1])[6:]}"
+        secs = "cached" if b.seconds is None else f"{b.seconds:.2f} s"
+        regs = [ln.split("Used ")[1].split()[0] for ln in b.ptxas
+                if "Used " in ln]
+        spills = sorted({ln.split("frame, ")[1] for ln in b.ptxas
+                         if "frame, " in ln})
+        log(f"[build] {name}: {secs}; registers per kernel variant "
+            f"{'/'.join(regs)}; {' | '.join(spills)}")
+        run.record["builds"].append({"spec": name, "seconds": b.seconds,
+                                     "ptxas": list(b.ptxas)})
+
+
+def compare_pdip(tag, c, G, h, cl, kw):
+    """The PDIP kernel against its plain version on one flat batch: cold,
+    warm (G, h x 1.001 from the plain cold optimum) and warm with every
+    other lane skipped.  Returns the per-variant agreement."""
+    from dcol_tpu_torch.ops import pdip_cuda
+    from dcol_tpu_torch.ops.pdip import solve_socp
+
+    B = c.shape[0]
+    ref = solve_socp(c, G, h, cl, **kw)
+    out = pdip_cuda.solve_socp_cuda(c, G, h, cl, **kw)
+    warm = (ref.x, ref.s, ref.z)
+    G2, h2 = G * (1 + 1e-3), h * (1 + 1e-3)
+    refw = solve_socp(c, G2, h2, cl, warm=warm, **kw)
+    outw = pdip_cuda.solve_socp_cuda(c, G2, h2, cl, warm=warm, **kw)
+    skip = torch.arange(B, device=c.device) % 2 == 0
+    refs = solve_socp(c, G2, h2, cl, warm=warm, skip=skip, **kw)
+    outs = pdip_cuda.solve_socp_cuda(c, G2, h2, cl, warm=warm, skip=skip,
+                                     **kw)
+    torch.cuda.synchronize()
+    row = {"B": B, "max_abs_err": 0.0}
+    for var, o, r in (("cold", out, ref), ("warm", outw, refw),
+                      ("warm+skip", outs, refs)):
+        err = float((o.x[:, 3] - r.x[:, 3]).abs().max())
+        torch.testing.assert_close(o.x[:, 3], r.x[:, 3], rtol=2e-3, atol=2e-3)
+        # In f32 a lane whose mu ends just above tol froze on a non-finite
+        # Newton step; which lanes do so depends on rounding, so the flags
+        # of two f32 implementations cannot agree lane for lane.  Hold the
+        # kernel to: no fewer converged lanes than the plain version (0.1%
+        # of lanes slack), and every disagreeing lane borderline on both
+        # sides (final mu < 10 tol).
+        dis = o.converged != r.converged
+        agree = 1.0 - float(dis.double().mean())
+        n_k, n_p = int(o.converged.sum()), int(r.converged.sum())
+        check(n_k >= n_p - 0.001 * B, f"{tag} {var} {cl}: kernel converged "
+                                      f"{n_k} lanes, plain {n_p}")
+        mu_dis = torch.cat([(a.s[dis] * a.z[dis]).sum(-1) / cl.degree
+                            for a in (o, r)])
+        bad = mu_dis[~(mu_dis < 10 * kw["tol"])]
+        check(bad.numel() == 0, f"{tag} {var} {cl}: lanes converged in one "
+                                f"version only, final mu {bad.tolist()}")
+        it_k = float(o.iters.double().mean())
+        it_p = float(r.iters.double().mean())
+        check(abs(it_k - it_p) <= 0.05 * it_p,
+              f"{tag} {var} {cl}: mean iters {it_k} vs {it_p}")
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row[var] = {"max_abs_err_alpha": err, "converged_agree": agree,
+                    "conv_kernel": n_k / B, "conv_plain": n_p / B,
+                    "mean_iters_kernel": it_k, "mean_iters_plain": it_p}
+    check(int(outs.iters[skip].max()) == 0 and
+          int(refs.iters[skip].max()) == 0, f"{tag}: skipped lanes iterated")
+    for a, b in zip(outs[:3], refs[:3]):
+        check(torch.equal(a[skip], b[skip]),
+              f"{tag}: skipped lanes differ from the plain version "
+              f"({float((a[skip] - b[skip]).abs().max())})")
+    return row
+
+
+def describe(row):
+    return (f"alpha err cold {row['cold']['max_abs_err_alpha']:.3e} "
+            f"warm {row['warm']['max_abs_err_alpha']:.3e} "
+            f"skip {row['warm+skip']['max_abs_err_alpha']:.3e}; converged "
+            f"kernel/plain {row['cold']['conv_kernel']:.4f}/"
+            f"{row['cold']['conv_plain']:.4f} (flags agree "
+            f"{row['cold']['converged_agree']:.4f}); iters "
+            f"cold {row['cold']['mean_iters_kernel']:.3f}/"
+            f"{row['cold']['mean_iters_plain']:.3f} warm "
+            f"{row['warm']['mean_iters_kernel']:.3f}/"
+            f"{row['warm']['mean_iters_plain']:.3f}")
+
+
+# -- 3. PDIP kernel vs plain version ----------------------------------------
+
+def phase_pdip(run):
+    from dcol_tpu_torch.ops import pdip_cuda
+    from dcol_tpu_torch.ops.cones import ConeLayout
+    from dcol_tpu_torch.ops.pdip import solve_socp
+    from dcol_tpu_torch.parallel.batch import perturb_scenarios
+    from dcol_tpu_torch.systems import quadrotor
+
+    dev = run.dev
+    sys_, params, X0, U0, cfg = quadrotor.make_problem(F32, dev)
+    scene = sys_.scene
+    groups = [(lay, idx, ConeLayout(lay.n_ort, lay.s1, lay.s2))
+              for lay, idx in scene.groups]
+    check(len(groups) == 7, f"quadrotor has {len(groups)} groups, not 7")
+    params_b, _, _ = perturb_scenarios(params, X0, U0, n=BATCH, seed=0,
+                                       x0_sigma=0.02)
+    rs, ps = sys_.robot_pose(params_b["Xref"])
+    grouped = scene.assemble_groups(rs, ps, params_b["obs_r"][:, None],
+                                    params_b["obs_p"][:, None])
+    opts = scene.opts
+    kw = dict(tol=opts.tol, max_iters=opts.max_iters, jitter=opts.jitter)
+    n_total, max_err, ms_total, plain_total = 0, 0.0, 0.0, 0.0
+    run.record["groups"] = []
+    for (lay, idx, cl), (c, G, h) in zip(groups, grouped):
+        B = c.shape[0] * c.shape[1] * c.shape[2]
+        c, G, h = (a.reshape((B,) + a.shape[3:]).contiguous()
+                   for a in (c, G, h))
+        n_total += B
+        row = compare_pdip(f"obstacles {idx}", c, G, h, cl, kw)
+        row["layout"] = [lay.nv, cl.n_ort, cl.s1, cl.s2]
+        max_err = max(max_err, row["max_abs_err"])
+        ms = cuda_ms(lambda: pdip_cuda.solve_socp_cuda(c, G, h, cl, **kw))
+        plain = cuda_ms(lambda: solve_socp(c, G, h, cl, **kw))
+        ms_total += ms
+        plain_total += plain
+        row.update(kernel_ms=ms, plain_ms=plain)
+        run.record["groups"].append(row)
+        log(f"[pdip] obstacles {idx} nv={lay.nv} {cl} B={B}: "
+            f"{describe(row)}; cold time kernel {ms:.3f} ms, plain "
+            f"{plain:.3f} ms")
+    check(n_total == BATCH * sys_.N * scene.n_obs,
+          f"constraint batch has {n_total} problems")
+    log(f"[pdip] cold constraint batch of {n_total} problems: kernel "
+        f"{ms_total:.3f} ms, plain {plain_total:.3f} ms (sum over 7 groups)")
+
+    gc, gG, gh, glay, gold = golden_batch(F64, dev)
+    gout = pdip_cuda.solve_socp_cuda(gc, gG, gh, glay, tol=1e-9, max_iters=40)
+    gref = solve_socp(gc, gG, gh, glay, tol=1e-9, max_iters=40)
+    torch.cuda.synchronize()
+    check(bool(gout.converged.all()), "f64 golden batch did not converge")
+    gerr = float(np.abs(gout.x[:, 3].cpu().numpy() - gold).max())
+    np.testing.assert_allclose(gout.x[:, 3].cpu().numpy(), gold, rtol=1e-6,
+                               atol=1e-8)
+    check(torch.equal(gout.iters, gref.iters), "f64 golden iteration counts "
+                                               "differ from the plain version")
+    log(f"[pdip] f64 golden pairs: max |alpha - golden| {gerr:.3e}, "
+        f"iters {gout.iters.tolist()} (plain {gref.iters.tolist()})")
+    run.record.update(golden_f64_max_err=gerr, constraint_batch=n_total)
+    run.record["pdip"] = {"max_abs_err": max_err, "ms": ms_total,
+                          "plain_ms": plain_total}
+
+
+# -- 4. the main path ----------------------------------------------------------
+
+def phase_quadrotor(run):
+    from dcol_tpu_torch.parallel.batch import perturb_scenarios, solve_batch
+    from dcol_tpu_torch.solver import altro
+    from dcol_tpu_torch.systems import piano_mover, quadrotor
+
+    dev = run.dev
+    sys_, params, X0, U0, cfg = quadrotor.make_problem(F32, dev)
+    params_b, X0_b, U0_b = perturb_scenarios(params, X0, U0, n=BATCH, seed=0,
+                                             x0_sigma=0.02)
+    st, wall = run.path(
+        "quadrotor solve_batch",
+        lambda: solve_batch(sys_, params_b, cfg, X0_b, U0_b), ["pdip"])
+    check(st.X.shape == (BATCH, sys_.N, sys_.nx), f"X shape {st.X.shape}")
+    check(bool(torch.isfinite(st.X).all() & torch.isfinite(st.U).all()),
+          "non-finite states or controls")
+    n_conv = int(st.converged.sum())
+    iters = st.iter.double()
+    mean_it, max_it = float(iters.mean()), int(iters.max())
+    log(f"[main] f32 quadrotor N={sys_.N}, batch {BATCH}: {wall:.3f} s wall, "
+        f"converged {n_conv}/{BATCH}, failed {int(st.failed.sum())}, "
+        f"mean iters {mean_it:.4f}, max iters {max_it}")
+    check(n_conv >= BATCH - 2, f"only {n_conv}/{BATCH} converged")
+    check(40.0 <= mean_it <= 60.0, f"mean ALTRO iterations {mean_it}")
+    # independent check of the result: a cold re-evaluation of the final
+    # trajectories finds no collision on the converged scenarios
+    hx, _, _ = altro.eval_constraints(sys_, params_b, st.X, st.U)
+    worst = float(hx[st.converged].max())
+    goal = float((st.X[st.converged, -1] - params_b["Xref"][st.converged, -1])
+                 .abs().max())
+    log(f"[main] cold re-check of converged trajectories: max h = 1 - alpha "
+        f"{worst:.3e}, max |x_N - x_goal| {goal:.3e}")
+    check(worst < 1e-3 and goal < 1e-3, "converged trajectories collide or "
+                                        "miss the goal")
+    run.record["main"] = {"wall_s": wall, "converged": n_conv,
+                          "batch": BATCH, "mean_iters": mean_it,
+                          "max_iters": max_it, "max_h": worst}
+
+    # the cheapest end-to-end golden: the f64 piano mover, 35 iterations
+    sys_p, params_p, X0_p, U0_p, cfg_p = piano_mover.make_problem(F64, dev)
+    stp, wall = run.path(
+        "piano solve_batch",
+        lambda: solve_batch(sys_p, {k: v[None] for k, v in params_p.items()},
+                            cfg_p, X0_p[None], U0_p[None]), ["pdip"])
+    gp = np.load(os.path.join(ROOT, "tests", "goldens", "ref_piano_mover.npz"))
+    perr = float(np.abs(stp.X[0].cpu().numpy() - gp["X"]).max())
+    log(f"[main] f64 piano mover: {wall:.3f} s, converged "
+        f"{bool(stp.converged[0])}, iters {int(stp.iter[0])} (golden "
+        f"{int(gp['iters'])}), max |X - X_golden| {perr:.3e}")
+    check(bool(stp.converged[0]) and int(stp.iter[0]) == int(gp["iters"])
+          and perr < 1e-3, "piano mover misses its golden")
+
+
+# -- 5. FMA probe and the roofline ------------------------------------------
+
+def phase_roofline(run):
+    from dcol_tpu_torch.ops import fma_peak
+    from dcol_tpu_torch.tools import roofline
+
+    dev = run.dev
+    inner = roofline.PEAK_INNER
+    rec = run.record["fma_peak"] = {}
+    # the kernel against its plain version and the closed form on random
+    # lanes, and on the inputs of both grids that roofline peak launches
+    rng = np.random.default_rng(0)
+    L = 4096
+    xs = np.concatenate([rng.uniform(0.5, 1.0, (8, L)),
+                         rng.uniform(0.99, 0.9999, (1, L)),
+                         rng.uniform(1e-3, 1e-2, (1, L))])
+    grids = {"random": L, **roofline.grid_sizes(dev)}
+    for dtype, rtol in ((F32, 1e-4), (F64, 1e-12)):
+        key = str(dtype)[6:]
+        rec[key] = {"grids": {}}
+        for gname, lanes in grids.items():
+            x = (torch.as_tensor(xs, dtype=dtype, device=dev)
+                 if gname == "random"
+                 else roofline.peak_input(dtype, lanes, dev))
+            k = fma_peak.fma_chains_cuda(x, inner)
+            p = fma_peak.fma_chains(x, inner)
+            exact = fma_peak.closed_form(x, inner)
+            torch.cuda.synchronize()
+            rel = lambda a: float(((a.double() - exact).abs()
+                                   / exact.abs()).max())
+            rel_k, rel_p = rel(k), rel(p)
+            rel_kp = float(((k.double() - p.double()).abs()
+                            / exact.abs()).max())
+            err = float((k - p).abs().max())
+            check(rel_k <= rtol and rel_p <= rtol and rel_kp <= rtol,
+                  f"FMA probe {key} {gname} ({lanes} lanes): relative error "
+                  f"vs closed form kernel {rel_k:.3e}, plain {rel_p:.3e}; "
+                  f"|kernel - plain| / |closed form| {rel_kp:.3e} (limit "
+                  f"{rtol})")
+            rec[key]["grids"][gname] = {
+                "lanes": lanes, "max_abs_err": err, "rel_err_kernel": rel_k,
+                "rel_err_plain": rel_p, "rel_kernel_plain": rel_kp}
+            log(f"[fma] {key} {gname} grid, {lanes:,} lanes: |kernel - "
+                f"plain| {err:.3e} ({rel_kp:.3e} relative); relative error "
+                f"vs closed form kernel {rel_k:.3e} / plain {rel_p:.3e} "
+                f"(limit {rtol})")
+            del x, k, p, exact
+        body, total = fma_peak.sass_fma_count(dtype)
+        check(body == fma_peak.FMAS_PER_PASS,
+              f"FMA probe {key}: {body} FMAs in the SASS loop body, not 64")
+        x_jax = roofline.peak_input(dtype, grids["jax"], dev)
+        ms = cuda_ms(lambda: fma_peak.fma_chains_cuda(x_jax, inner))
+        plain = cuda_ms(lambda: fma_peak.fma_chains(x_jax, inner))
+        rec[key].update(
+            max_abs_err=max(g["max_abs_err"]
+                            for g in rec[key]["grids"].values()),
+            sass_loop_fmas=body, sass_total_fmas=total, ms=ms,
+            plain_ms=plain)
+        log(f"[fma] {key}: SASS {'FFMA' if dtype == F32 else 'DFMA'} {body} "
+            f"per loop pass ({total} in the kernel); {grids['jax']:,} lanes "
+            f"x {inner} passes: kernel {ms:.4f} ms, plain {plain:.3f} ms")
+
+    table, _ = run.path("roofline peak",
+                        lambda: roofline.peak_table(dev, out=log),
+                        ["fma_peak"])
+    run.record["peak"] = table
+    f32_full = [r for r in table["rows"]
+                if r["dtype"] == "float32" and r["grid"] == "full_card"][0]
+    check(0.0 < f32_full["of_nominal"] <= 1.05,
+          f"f32 peak is {f32_full['of_nominal']:.3f} of nominal")
+    peak_flops = f32_full["tflops"] * 1e12
+
+    res, _ = run.path("roofline kernel",
+                      lambda: roofline.kernel_cold(peak_flops, device=dev,
+                                                   out=log), ["pdip"])
+    run.record["roofline_kernel"] = res
+    for g in res["groups"]:
+        check(0.0 < g["utilization"] <= 1.0,
+              f"group {g['obstacles']}: utilization {g['utilization']}")
+
+
+# -- 6. proximity ---------------------------------------------------------------
+
+def phase_proximity(run):
+    from dcol_tpu_torch.ops.proximity import proximity, proximity_alpha
+
+    dev = run.dev
+    shapes = golden_shapes()
+    cases = golden_cases()
+
+    def solve_all():
+        out = []
+        for case in cases:
+            s1, s2 = shapes[case["k1"]], shapes[case["k2"]]
+            poses = [torch.tensor(case[k], dtype=F64, device=dev,
+                                  requires_grad=True)
+                     for k in ("r1", "p1", "r2", "p2")]
+            a = proximity_alpha(s1, s2, *poses, tol=1e-10, max_iters=40)
+            a.backward()
+            out.append((a.detach(), [p.grad for p in poses]))
+        return out
+
+    res, wall = run.path("proximity golden pairs", solve_all, ["pdip"])
+    a_err, g_err = 0.0, 0.0
+    for case, (a, grads) in zip(cases, res):
+        tag = f"{case['k1']} vs {case['k2']}"
+        np.testing.assert_allclose(float(a), case["alpha"], rtol=1e-6,
+                                   atol=1e-8, err_msg=tag)
+        got = torch.cat(grads).cpu().numpy()
+        np.testing.assert_allclose(got, np.array(case["grad"]), rtol=2e-4,
+                                   atol=5e-5, err_msg=tag)
+        a_err = max(a_err, abs(float(a) - case["alpha"]))
+        g_err = max(g_err, float(np.abs(got - np.array(case["grad"])).max()))
+    # every pair through proximity on the card and on the CPU (the plain
+    # version): the same iteration count, alpha, x and z
+    dx = dz = 0.0
+    for case in cases:
+        tag = f"{case['k1']} vs {case['k2']}"
+        s1, s2 = shapes[case["k1"]], shapes[case["k2"]]
+        args = [torch.tensor(case[k], dtype=F64)
+                for k in ("r1", "p1", "r2", "p2")]
+        on_card = proximity(s1, s2, *[a.to(dev) for a in args], tol=1e-10,
+                            max_iters=40)
+        on_cpu = proximity(s1, s2, *args, tol=1e-10, max_iters=40)
+        check(bool(on_card.converged) and bool(on_cpu.converged)
+              and int(on_card.iters) == int(on_cpu.iters),
+              f"{tag}: card/CPU converged {bool(on_card.converged)}/"
+              f"{bool(on_cpu.converged)}, iterations {int(on_card.iters)}/"
+              f"{int(on_cpu.iters)}")
+        for name, a, b in (("x", on_card.x, on_cpu.x),
+                           ("z", on_card.z, on_cpu.z)):
+            torch.testing.assert_close(
+                a.cpu(), b, rtol=PROX_RTOL, atol=PROX_ATOL,
+                msg=lambda m, n=name: f"{tag}: {n} card vs CPU: {m}")
+        dx = max(dx, float((on_card.x.cpu() - on_cpu.x).abs().max()))
+        dz = max(dz, float((on_card.z.cpu() - on_cpu.z).abs().max()))
+    log(f"[proximity] 27 golden pairs on the card, f64: {wall:.3f} s, max "
+        f"|alpha - golden| {a_err:.3e}, max |grad - FD golden| {g_err:.3e}; "
+        f"card vs CPU (plain version): equal iteration counts, max |dx| "
+        f"{dx:.3e} (alpha is x[3]), max |dz| {dz:.3e} (limit {PROX_ATOL} + "
+        f"{PROX_RTOL} relative)")
+    run.record["proximity"] = {"wall_s": wall, "alpha_err": a_err,
+                               "grad_err": g_err, "card_cpu_max_dx": dx,
+                               "card_cpu_max_dz": dz}
+
+
+# -- 7. cone through wall ---------------------------------------------------
+
+def phase_cone(run):
+    from dcol_tpu_torch.ops.cones import ConeLayout
+    from dcol_tpu_torch.parallel.batch import perturb_scenarios, solve_batch
+    from dcol_tpu_torch.solver import altro
+    from dcol_tpu_torch.systems import cone_through_wall
+
+    dev = run.dev
+    n = 32
+    # the PDIP kernel vs its plain version on the cone's constraint batch
+    # at the initial rollouts of the 32 perturbed scenarios, in both dtypes
+    run.record["cone_pdip"] = {}
+    for dtype in (F32, F64):
+        sys_, params, X0, U0, cfg = cone_through_wall.make_problem(dtype, dev)
+        pb, xb, ub = perturb_scenarios(params, X0, U0, n=n, seed=0,
+                                       x0_sigma=0.02)
+        X = altro.initial_rollout(sys_, pb, xb[:, 0], ub)
+        scene, opts = sys_.scene, sys_.scene.opts
+        rs, ps = sys_.robot_pose(X)
+        grouped = scene.assemble_groups(rs, ps, pb["obs_r"][:, None],
+                                        pb["obs_p"][:, None])
+        kw = dict(tol=opts.tol, max_iters=opts.max_iters, jitter=opts.jitter)
+        for (lay, idx), (c, G, h) in zip(scene.groups, grouped):
+            cl = ConeLayout(lay.n_ort, lay.s1, lay.s2)
+            B = c.shape[0] * c.shape[1] * c.shape[2]
+            c, G, h = (a.reshape((B,) + a.shape[3:]).contiguous()
+                       for a in (c, G, h))
+            row = compare_pdip(f"cone {str(dtype)[6:]}", c, G, h, cl, kw)
+            row["layout"] = [lay.nv, cl.n_ort, cl.s1, cl.s2]
+            run.record["cone_pdip"][f"{str(dtype)[6:]} {idx}"] = row
+            log(f"[cone] PDIP kernel vs plain, {str(dtype)[6:]}, walls {idx} "
+                f"nv={lay.nv} {cl} B={B} (tol {opts.tol:g}): {describe(row)}")
+
+    sys_, params, X0, U0, cfg = cone_through_wall.make_problem(F64, dev)
+    pb = {k: v[None] for k, v in params.items()}
+    st, wall = run.path(
+        "cone f64 solve",
+        lambda: solve_batch(sys_, pb, cfg, X0[None], U0[None]), ["pdip"])
+    gold = np.load(os.path.join(ROOT, "tests", "goldens",
+                                "ref_coneThroughWall.npz"))
+    T = lambda a: torch.as_tensor(a, dtype=F64, device=dev)[None]
+    J = float(altro.quad_cost(sys_, pb, st.X, st.U)[0])
+    J_ref = float(altro.quad_cost(sys_, pb, T(gold["X"]), T(gold["U"]))[0])
+    goal = float((st.X[0, -1] - params["Xref"][-1]).abs().max())
+    max_h = float(st.hx.max())
+    log(f"[cone] f64: {wall:.3f} s, converged {bool(st.converged[0])}, "
+        f"iters {int(st.iter[0])} (reference {int(gold['iters'])}), goal "
+        f"error {goal:.3e}, max h {max_h:.3e}, cost {J:.6f} (reference "
+        f"{J_ref:.6f})")
+    check(bool(st.converged[0]) and goal < 1e-4 and max_h < 1e-3
+          and J <= 1.001 * J_ref, "f64 cone misses its reference")
+    run.record["cone_f64"] = {"wall_s": wall, "iters": int(st.iter[0]),
+                              "goal_err": goal, "max_h": max_h, "cost": J,
+                              "cost_ref": J_ref}
+
+    # Some perturbed scenarios do not converge in f32; one can iterate past
+    # 1,000 ALTRO iterations without failing, so the run caps the batch and
+    # reports the converged count
+    sys_, params, X0, U0, cfg = cone_through_wall.make_problem(F32, dev)
+    cfg = dataclasses.replace(cfg, max_iters=CONE_F32_MAX_ITERS)
+    params_b, X0_b, U0_b = perturb_scenarios(params, X0, U0, n=n, seed=0,
+                                             x0_sigma=0.02)
+    st, wall = run.path(
+        "cone f32 batch",
+        lambda: solve_batch(sys_, params_b, cfg, X0_b, U0_b), ["pdip"])
+    check(bool(torch.isfinite(st.X).all() & torch.isfinite(st.U).all()),
+          "f32 cone batch: non-finite states or controls")
+    conv = st.converged
+    n_conv = int(conv.sum())
+    iters = st.iter.double()
+    worst = float("nan")
+    if n_conv:
+        hx, _, _ = altro.eval_constraints(sys_, params_b, st.X, st.U)
+        worst = float(hx[conv].max())
+    it_conv = iters[conv]
+    log(f"[cone] f32 batch {n}, at most {CONE_F32_MAX_ITERS} iterations: "
+        f"{wall:.3f} s wall, converged {n_conv}/{n}, failed "
+        f"{int(st.failed.sum())}, capped {int((~conv & ~st.failed).sum())}; "
+        f"iterations of the converged: mean "
+        f"{float(it_conv.mean()) if n_conv else float('nan'):.3f}, max "
+        f"{int(it_conv.max()) if n_conv else -1}; cold re-check of the "
+        f"converged: max h = 1 - alpha {worst:.3e}")
+    log(f"[cone] f32 per scenario: iters {st.iter.tolist()}, convio "
+        f"{[float(f'{v:.3g}') for v in st.convio.tolist()]}")
+    run.record["cone_f32_batch"] = {
+        "wall_s": wall, "n": n, "max_iters_cap": CONE_F32_MAX_ITERS,
+        "converged": n_conv, "failed": int(st.failed.sum()),
+        "iters": st.iter.tolist(), "convio": st.convio.tolist(),
+        "rho": st.rho.tolist(), "max_h_converged": worst}
+
+
+# -- 8. MPC -----------------------------------------------------------------
+
+def phase_mpc(run):
+    from dcol_tpu_torch.solver import mpc
+    from dcol_tpu_torch.systems import piano_mover, quadrotor
+
+    dev = run.dev
+    sys_, params, X0, U0, cfg = piano_mover.make_problem(F64, dev)
+    cfg = dataclasses.replace(cfg, max_iters=40)
+    pb = {k: v[None] for k, v in params.items()}
+    res = {}
+    for carry in (True, False):
+        name = "warm" if carry else "cold"
+        r, wall = run.path(
+            f"mpc piano {name} duals",
+            lambda: mpc.mpc_run(sys_, pb, cfg, X0[None, 0], U0[None], 12,
+                                carry_duals=carry), ["pdip"])
+        check(bool(torch.isfinite(r.X_applied).all()),
+              f"piano MPC ({name}): non-finite states")
+        res[name] = (r, wall)
+    it_w = float(res["warm"][0].iters[0, 1:].double().mean())
+    it_c = float(res["cold"][0].iters[0, 1:].double().mean())
+    log(f"[mpc] f64 piano, 12 ticks: mean iterations per tick after the "
+        f"first, dual-warm {it_w:.3f} ({res['warm'][1]:.3f} s) vs dual-cold "
+        f"{it_c:.3f} ({res['cold'][1]:.3f} s)")
+    check(it_w < it_c, "dual warm starts did not cut MPC iterations")
+
+    S, n_steps, N, tick_iters = 128, 10, 40, 8
+    sys_, params, X0, U0, cfg = quadrotor.make_problem(F32, dev, N=N)
+    cfg = dataclasses.replace(cfg, max_iters=tick_iters)
+    rng = np.random.default_rng(0)
+    x0s = torch.as_tensor(X0[0].cpu().numpy()[None]
+                          + rng.normal(0, 0.02, (S, sys_.nx)),
+                          dtype=F32, device=dev)
+    pb = {k: v[None].expand((S,) + v.shape).contiguous()
+          for k, v in params.items()}
+    Ub = U0[None].expand((S,) + U0.shape).contiguous()
+    r, wall = run.path(
+        "mpc quadrotor S=128",
+        lambda: mpc.mpc_run(sys_, pb, cfg, x0s, Ub, n_steps), ["pdip"])
+    check(bool(torch.isfinite(r.X_applied).all()
+               & torch.isfinite(r.U_applied).all()),
+          "quadrotor MPC: non-finite states or controls")
+    mean_it = float(r.iters.double().mean())
+    h_max = float(r.h_applied.max())
+    log(f"[mpc] f32 quadrotor S={S} N={N}, {n_steps} ticks x <= "
+        f"{tick_iters} iterations: {wall:.3f} s wall, "
+        f"{n_steps / wall:.4f} ticks/s ({S * n_steps / wall:.2f} "
+        f"scenario-ticks/s), mean iterations per tick {mean_it:.3f}, "
+        f"converged ticks {float(r.converged.double().mean()):.4f}, max "
+        f"h_applied {h_max:.3e}, max plan convio "
+        f"{float(r.convio.max()):.3e}")
+    run.record["mpc"] = {
+        "piano_warm_iters": it_w, "piano_cold_iters": it_c,
+        "quad_wall_s": wall, "quad_ticks_per_s": n_steps / wall,
+        "quad_mean_iters": mean_it, "quad_max_h_applied": h_max}
 
 
 def main():
@@ -106,205 +707,34 @@ def main():
         f"{kind}, {torch.cuda.device_count()} device(s)")
     dev = torch.device(DEVICE)
     torch.cuda.set_device(dev)
-
     import dcol_tpu_torch  # noqa: F401  (sets full-f32 matmul precision)
-    from dcol_tpu_torch.ops import pdip_cuda
-    from dcol_tpu_torch.ops.cones import ConeLayout
-    from dcol_tpu_torch.ops.pdip import solve_socp
-    from dcol_tpu_torch.parallel.batch import perturb_scenarios, solve_batch
-    from dcol_tpu_torch.solver import altro
-    from dcol_tpu_torch.systems import piano_mover, quadrotor
 
-    record = {"device": smi, "torch": torch.__version__}
-
-    # -- 2. build --------------------------------------------------------------
-    f32 = torch.float32
-    sys_, params, X0, U0, cfg = quadrotor.make_problem(f32, dev)
-    scene = sys_.scene
-    groups = [(lay, idx, ConeLayout(lay.n_ort, lay.s1, lay.s2))
-              for lay, idx in scene.groups]
-    check(len(groups) == 7, f"quadrotor has {len(groups)} groups, not 7")
-    gc, gG, gh, glay, gold = golden_batch(torch.float64, dev)
-    piano = piano_mover.make_system()
-    specs = [(f32, lay.nv, cl) for lay, _, cl in groups]
-    specs.append((torch.float64, gG.shape[-1], glay))
-    specs += [(torch.float64, lay.nv, ConeLayout(lay.n_ort, lay.s1, lay.s2))
-              for lay, _ in piano.scene.groups]
+    run = Run(dev, smi)
     t0 = time.perf_counter()
-    builds = pdip_cuda.build_all(specs)
-    build_wall = time.perf_counter() - t0
-    log(f"[build] {len(builds)} specialisations in {build_wall:.2f} s wall")
-    record["build_wall_s"] = build_wall
-    record["builds"] = []
-    for b in builds:
-        dt, nv, n_ort, s1, s2 = b.key
-        name = f"{str(dt)[6:]} nv={nv} n_ort={n_ort} s1={s1} s2={s2}"
-        secs = "cached" if b.seconds is None else f"{b.seconds:.2f} s"
-        log(f"[build] {name}: {secs}")
-        for ln in b.ptxas:
-            log(f"[build]   {ln}")
-        record["builds"].append({"spec": name, "seconds": b.seconds,
-                                 "ptxas": list(b.ptxas)})
+    for phase in (phase_build, phase_pdip, phase_quadrotor, phase_roofline,
+                  phase_proximity, phase_cone, phase_mpc):
+        t = time.perf_counter()
+        phase(run)
+        log(f"[phase] {phase.__name__[6:]}: {time.perf_counter() - t:.1f} s")
+    run.record["total_s"] = time.perf_counter() - t0
 
-    # -- 3. kernel vs plain version -----------------------------------------
-    params_b, X0_b, U0_b = perturb_scenarios(params, X0, U0, n=BATCH, seed=0,
-                                             x0_sigma=0.02)
-    rs, ps = sys_.robot_pose(params_b["Xref"])
-    grouped = scene.assemble_groups(rs, ps, params_b["obs_r"][:, None],
-                                    params_b["obs_p"][:, None])
-    opts = scene.opts
-    kw = dict(tol=opts.tol, max_iters=opts.max_iters, jitter=opts.jitter)
-    n_total, max_err, ms_total, plain_total = 0, 0.0, 0.0, 0.0
-    record["groups"] = []
-    for (lay, idx, cl), (c, G, h) in zip(groups, grouped):
-        B = c.shape[0] * c.shape[1] * c.shape[2]
-        c, G, h = (a.reshape((B,) + a.shape[3:]).contiguous()
-                   for a in (c, G, h))
-        n_total += B
-        row = {"layout": [lay.nv, cl.n_ort, cl.s1, cl.s2], "B": B}
-        ref = solve_socp(c, G, h, cl, **kw)
-        out = pdip_cuda.solve_socp_cuda(c, G, h, cl, **kw)
-        warm = (ref.x, ref.s, ref.z)
-        G2, h2 = G * (1 + 1e-3), h * (1 + 1e-3)
-        refw = solve_socp(c, G2, h2, cl, warm=warm, **kw)
-        outw = pdip_cuda.solve_socp_cuda(c, G2, h2, cl, warm=warm, **kw)
-        skip = torch.arange(B, device=dev) % 2 == 0
-        refs = solve_socp(c, G2, h2, cl, warm=warm, skip=skip, **kw)
-        outs = pdip_cuda.solve_socp_cuda(c, G2, h2, cl, warm=warm, skip=skip,
-                                         **kw)
-        torch.cuda.synchronize()
-        for tag, o, r in (("cold", out, ref), ("warm", outw, refw),
-                          ("warm+skip", outs, refs)):
-            err = float((o.x[:, 3] - r.x[:, 3]).abs().max())
-            torch.testing.assert_close(o.x[:, 3], r.x[:, 3], rtol=2e-3,
-                                       atol=2e-3)
-            # In f32 a lane whose mu ends just above tol froze on a
-            # non-finite Newton step; which lanes do so depends on rounding,
-            # so the flags of two f32 implementations cannot agree lane for
-            # lane.  Hold the kernel to: no fewer converged lanes than the
-            # plain version (0.1% of lanes slack), and every disagreeing lane
-            # borderline on both sides (final mu < 10 tol).
-            dis = o.converged != r.converged
-            agree = 1.0 - float(dis.double().mean())
-            n_k, n_p = int(o.converged.sum()), int(r.converged.sum())
-            check(n_k >= n_p - 0.001 * B, f"{tag} {cl}: kernel converged "
-                                          f"{n_k} lanes, plain {n_p}")
-            mu_dis = torch.cat([(a.s[dis] * a.z[dis]).sum(-1) / cl.degree
-                                for a in (o, r)])
-            bad = mu_dis[~(mu_dis < 10 * opts.tol)]
-            check(bad.numel() == 0, f"{tag} {cl}: lanes converged in one "
-                                    f"version only, final mu {bad.tolist()}")
-            it_k = float(o.iters.double().mean())
-            it_p = float(r.iters.double().mean())
-            check(abs(it_k - it_p) <= 0.05 * it_p,
-                  f"{tag} {cl}: mean iters {it_k} vs {it_p}")
-            max_err = max(max_err, err)
-            row[tag] = {"max_abs_err_alpha": err, "converged_agree": agree,
-                        "conv_kernel": n_k / B, "conv_plain": n_p / B,
-                        "mean_iters_kernel": it_k, "mean_iters_plain": it_p}
-        check(int(outs.iters[skip].max()) == 0 and
-              int(refs.iters[skip].max()) == 0, "skipped lanes iterated")
-        for a, b in zip(outs[:3], refs[:3]):
-            check(torch.equal(a[skip], b[skip]),
-                  f"skipped lanes differ from the plain version "
-                  f"({float((a[skip] - b[skip]).abs().max())})")
-        ms = cuda_ms(lambda: pdip_cuda.solve_socp_cuda(c, G, h, cl, **kw))
-        plain = cuda_ms(lambda: solve_socp(c, G, h, cl, **kw))
-        ms_total += ms
-        plain_total += plain
-        row.update(kernel_ms=ms, plain_ms=plain)
-        record["groups"].append(row)
-        log(f"[kernel] obstacles {idx} nv={lay.nv} {cl} B={B}: "
-            f"alpha err cold {row['cold']['max_abs_err_alpha']:.3e} "
-            f"warm {row['warm']['max_abs_err_alpha']:.3e} "
-            f"skip {row['warm+skip']['max_abs_err_alpha']:.3e}; converged "
-            f"kernel/plain {row['cold']['conv_kernel']:.4f}/"
-            f"{row['cold']['conv_plain']:.4f} (flags agree "
-            f"{row['cold']['converged_agree']:.4f}); iters "
-            f"cold {row['cold']['mean_iters_kernel']:.3f}/"
-            f"{row['cold']['mean_iters_plain']:.3f} warm "
-            f"{row['warm']['mean_iters_kernel']:.3f}/"
-            f"{row['warm']['mean_iters_plain']:.3f}; cold time kernel "
-            f"{ms:.3f} ms, plain {plain:.3f} ms")
-    check(n_total == BATCH * sys_.N * scene.n_obs,
-          f"constraint batch has {n_total} problems")
-    log(f"[kernel] cold constraint batch of {n_total} problems: kernel "
-        f"{ms_total:.3f} ms, plain {plain_total:.3f} ms (sum over 7 groups)")
-
-    gout = pdip_cuda.solve_socp_cuda(gc, gG, gh, glay, tol=1e-9, max_iters=40)
-    gref = solve_socp(gc, gG, gh, glay, tol=1e-9, max_iters=40)
-    torch.cuda.synchronize()
-    check(bool(gout.converged.all()), "f64 golden batch did not converge")
-    gerr = float(np.abs(gout.x[:, 3].cpu().numpy() - gold).max())
-    np.testing.assert_allclose(gout.x[:, 3].cpu().numpy(), gold, rtol=1e-6,
-                               atol=1e-8)
-    check(torch.equal(gout.iters, gref.iters), "f64 golden iteration counts "
-                                               "differ from the plain version")
-    log(f"[kernel] f64 golden pairs: max |alpha - golden| {gerr:.3e}, "
-        f"iters {gout.iters.tolist()} (plain {gref.iters.tolist()})")
-    record.update(golden_f64_max_err=gerr, constraint_batch=n_total,
-                  kernel_ms=ms_total, plain_ms=plain_total)
-
-    # -- 4. the main path --------------------------------------------------
-    pdip_cuda.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    st = solve_batch(sys_, params_b, cfg, X0_b, U0_b)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = pdip_cuda.launches
-    check(launches > 0, "the main path launched no PDIP kernel")
-    check(st.X.shape == (BATCH, sys_.N, sys_.nx), f"X shape {st.X.shape}")
-    check(bool(torch.isfinite(st.X).all() & torch.isfinite(st.U).all()),
-          "non-finite states or controls")
-    n_conv = int(st.converged.sum())
-    iters = st.iter.double()
-    mean_it, max_it = float(iters.mean()), int(iters.max())
-    log(f"[main] f32 quadrotor N={sys_.N}, batch {BATCH}: {wall:.3f} s wall, "
-        f"converged {n_conv}/{BATCH}, failed {int(st.failed.sum())}, "
-        f"mean iters {mean_it:.4f}, max iters {max_it}, "
-        f"PDIP kernel launches {launches}")
-    check(n_conv >= BATCH - 2, f"only {n_conv}/{BATCH} converged")
-    check(40.0 <= mean_it <= 60.0, f"mean ALTRO iterations {mean_it}")
-    # independent check of the result: a cold re-evaluation of the final
-    # trajectories finds no collision on the converged scenarios
-    hx, _, _ = altro.eval_constraints(sys_, params_b, st.X, st.U)
-    worst = float(hx[st.converged].max())
-    goal = float((st.X[st.converged, -1] - params_b["Xref"][st.converged, -1])
-                 .abs().max())
-    log(f"[main] cold re-check of converged trajectories: max h = 1 - alpha "
-        f"{worst:.3e}, max |x_N - x_goal| {goal:.3e}")
-    check(worst < 1e-3 and goal < 1e-3, "converged trajectories collide or "
-                                        "miss the goal")
-    record["main"] = {"wall_s": wall, "converged": n_conv, "batch": BATCH,
-                      "mean_iters": mean_it, "max_iters": max_it,
-                      "launches": launches, "max_h": worst}
-
-    # the cheapest end-to-end golden: the f64 piano mover, 35 iterations
-    sys_p, params_p, X0_p, U0_p, cfg_p = piano_mover.make_problem(
-        torch.float64, dev)
-    t0 = time.perf_counter()
-    stp = solve_batch(sys_p, {k: v[None] for k, v in params_p.items()}, cfg_p,
-                      X0_p[None], U0_p[None])
-    torch.cuda.synchronize()
-    gp = np.load(os.path.join(ROOT, "tests", "goldens", "ref_piano_mover.npz"))
-    perr = float(np.abs(stp.X[0].cpu().numpy() - gp["X"]).max())
-    log(f"[main] f64 piano mover: {time.perf_counter() - t0:.3f} s, "
-        f"converged {bool(stp.converged[0])}, iters {int(stp.iter[0])} "
-        f"(golden {int(gp['iters'])}), max |X - X_golden| {perr:.3e}")
-    check(bool(stp.converged[0]) and int(stp.iter[0]) == int(gp["iters"])
-          and perr < 1e-3, "piano mover misses its golden")
-
-    # -- 5. results --------------------------------------------------------
-    kernels = {"kernels": [{
-        "name": "pdip", "route": "cuda",
-        "source": "dcol_tpu_torch/csrc/pdip.cu", "replaces": TPU_KERNEL,
-        "launches": launches, "max_abs_err": max_err, "ms": ms_total,
-        "plain_ms": plain_total}]}
-    record["kernels"] = kernels["kernels"]
+    # -- 9. results --------------------------------------------------------
+    fma = run.record["fma_peak"]["float32"]
+    pdip = run.record["pdip"]
+    kernels = {"kernels": [
+        {"name": "pdip", "route": "cuda",
+         "source": "dcol_tpu_torch/csrc/pdip.cu", "replaces": PDIP_TPU_KERNEL,
+         "launches": run.launches("pdip"), "max_abs_err": pdip["max_abs_err"],
+         "ms": pdip["ms"], "plain_ms": pdip["plain_ms"]},
+        {"name": "fma_peak", "route": "cuda",
+         "source": "dcol_tpu_torch/csrc/fma_peak.cu",
+         "replaces": FMA_TPU_KERNEL, "launches": run.launches("fma_peak"),
+         "max_abs_err": fma["max_abs_err"], "ms": fma["ms"],
+         "plain_ms": fma["plain_ms"]}]}
+    run.record["kernels"] = kernels["kernels"]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump(record, f, indent=1)
+        json.dump(run.record, f, indent=1)
     log(f"[device] {smi}")
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

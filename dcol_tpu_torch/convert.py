@@ -28,3 +28,18 @@ def warm_from_numpy(warm_np, *, device, dtype):
                                      device=device) for a in warm_np)
     return tuple(warm_from_numpy(g, device=device, dtype=dtype)
                  for g in warm_np)
+
+
+def carry_from_numpy(carry_np, *, device, dtype):
+    """The JAX package's ``MpcCarry`` (x, U, mu, mux, lambd, rho) as numpy
+    arrays, for one scenario (x (nx,)) or a vmapped batch (x (S, nx)) ->
+    the port's ``MpcCarry`` with a leading scenario dim S."""
+    from dcol_tpu_torch.solver.mpc import MpcCarry
+
+    x, U, mu, mux, lambd, rho = (np.asarray(a) for a in carry_np)
+    if x.ndim == 1:
+        x, U, mu, mux, lambd, rho = (a[None] for a in
+                                     (x, U, mu, mux, lambd, rho))
+    T = lambda a: torch.tensor(np.array(a), dtype=dtype, device=device)
+    return MpcCarry(T(x), T(U), T(mu), T(mux), T(lambd),
+                    T(rho).reshape(x.shape[0]))

@@ -34,6 +34,11 @@ def dcm_from_mrp(p: torch.Tensor) -> torch.Tensor:
     return eye + (8.0 * SS + 4.0 * (1.0 - pp) * S) / den
 
 
+def mrp_from_quat(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion [w, x, y, z] (..., 4) -> MRP (..., 3)."""
+    return q[..., 1:4] / (1.0 + q[..., 0:1])
+
+
 def mrp_kinematics(p: torch.Tensor, omega: torch.Tensor) -> torch.Tensor:
     """pdot = B(p) omega with
     B(p) = ((1 + p'p)/4) (I + 2 ([p]x^2 + [p]x) / (1 + p'p)), matrix-free."""

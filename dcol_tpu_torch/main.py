@@ -1,6 +1,6 @@
 """Command-line entry point of the port:
 
-    python -m dcol_tpu_torch.main --system {quadrotor,piano_mover}
+    python -m dcol_tpu_torch.main --system {quadrotor,piano_mover,coneThroughWall}
         [--batch N] [--f32 | --f64] --device {cuda,cpu}
 
 Without ``--batch`` it solves the system once and prints the iteration
@@ -20,7 +20,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser(
         description="DCOL trajectory optimisation (PyTorch / CUDA port).")
     parser.add_argument("--system", required=True,
-                        choices=["piano_mover", "quadrotor"])
+                        choices=["piano_mover", "quadrotor",
+                                 "coneThroughWall"])
     parser.add_argument("--batch", type=int, default=0,
                         help="solve a batch of perturbed scenarios instead "
                              "of one")
@@ -32,10 +33,12 @@ def main(argv=None):
 
     from dcol_tpu_torch.parallel.batch import (
         perturb_scenarios, solve_batch, summarize)
-    from dcol_tpu_torch.systems import piano_mover, quadrotor
+    from dcol_tpu_torch.systems import (
+        cone_through_wall, piano_mover, quadrotor)
     from dcol_tpu_torch.utils import metrics
 
-    mod = {"piano_mover": piano_mover, "quadrotor": quadrotor}[args.system]
+    mod = {"piano_mover": piano_mover, "quadrotor": quadrotor,
+           "coneThroughWall": cone_through_wall}[args.system]
     if args.f32 or (args.device == "cuda" and not args.f64):
         dtype = torch.float32
     else:

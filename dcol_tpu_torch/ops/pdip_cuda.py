@@ -8,8 +8,8 @@ The kernel is specialised per (dtype, nv, cone layout).  Each specialisation
 is compiled at first use with ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface (``-D`` defines pick the layout), cached
 under ``dcol_tpu_torch/build/`` keyed by a hash of the source and the flags,
-and bound with ``ctypes``.  Nothing is built at import, so the module imports
-on machines without ``nvcc``.
+and bound with ``ctypes`` (:mod:`dcol_tpu_torch.ops.nvcc_build`).  Nothing
+is built at import, so the module imports on machines without ``nvcc``.
 
 The wrapper takes CUDA tensors only and raises on anything else: a CPU
 tensor, a dtype or layout it cannot build, a failed build or a launch error.
@@ -19,24 +19,17 @@ It never falls back to the plain version.
 from __future__ import annotations
 
 import ctypes
-import dataclasses
-import hashlib
 import os
-import shutil
-import subprocess
-import threading
-import time
-from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
+from dcol_tpu_torch.ops import nvcc_build
 from dcol_tpu_torch.ops.cones import ConeLayout
+from dcol_tpu_torch.ops.nvcc_build import Build
 from dcol_tpu_torch.ops.pdip import SocpSolution, check_args
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "pdip.cu")
-BUILD_DIR = os.path.join(_PKG, "build")
+SOURCE = os.path.join(nvcc_build.CSRC, "pdip.cu")
 
 # Kernel launches made by solve_socp_cuda (one per call with B > 0).
 launches = 0
@@ -44,115 +37,40 @@ launches = 0
 _CTYPE = {torch.float32: "float", torch.float64: "double"}
 
 
-@dataclasses.dataclass(frozen=True)
-class Build:
-    """One compiled specialisation."""
-
-    key: Tuple                  # (dtype, nv, n_ort, s1, s2)
-    path: str                   # the shared library
-    seconds: Optional[float]    # compile wall time; None if it came from cache
-    ptxas: Tuple[str, ...]      # the ptxas -v register / spill report
-
-
-_LIBS: Dict[Tuple, ctypes.CDLL] = {}
-_BUILDS: Dict[Tuple, Build] = {}
-_LOCK = threading.Lock()
-
-
-def _nvcc() -> str:
-    for home in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
-                 "/usr/local/cuda"):
-        if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
-            return os.path.join(home, "bin", "nvcc")
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME): the PDIP kernel "
-                           "is compiled at first use")
-    return found
-
-
 def _key(dtype, nv: int, lay: ConeLayout) -> Tuple:
     if dtype not in _CTYPE:
         raise TypeError(f"PDIP kernel supports float32/float64, got {dtype}")
-    return (dtype, nv, lay.n_ort, lay.s1, lay.s2)
-
-
-def _flags(key) -> list:
-    dtype, nv, n_ort, s1, s2 = key
-    return ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-            "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-            f"-DDCOL_T={_CTYPE[dtype]}", f"-DDCOL_NV={nv}",
-            f"-DDCOL_NORT={n_ort}", f"-DDCOL_S1={s1}", f"-DDCOL_S2={s2}"]
-
-
-def _ptxas_lines(log: str) -> Tuple[str, ...]:
-    return tuple(ln.strip() for ln in log.splitlines()
-                 if "registers" in ln or "spill" in ln)
+    return ("pdip", dtype, nv, lay.n_ort, lay.s1, lay.s2)
 
 
 def build(dtype, nv: int, lay: ConeLayout) -> Build:
     """Compile (or find in the cache) the library for one specialisation."""
     key = _key(dtype, nv, lay)
-    with _LOCK:
-        if key in _BUILDS:
-            return _BUILDS[key]
-    with open(SOURCE, "rb") as f:
-        src = f.read()
-    flags = _flags(key)
-    digest = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
-    name = f"pdip_{_CTYPE[key[0]]}_{nv}_{lay.n_ort}_{lay.s1}_{lay.s2}_{digest}"
-    path = os.path.join(BUILD_DIR, name + ".so")
-    log_path = os.path.join(BUILD_DIR, name + ".log")
-    seconds = None
-    if not (os.path.exists(path) and os.path.exists(log_path)):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
-        t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *flags, "-o", tmp, SOURCE],
-                              capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr}")
-        with open(log_path + ".tmp", "w") as f:
-            f.write(proc.stderr)
-        os.replace(log_path + ".tmp", log_path)
-        os.replace(tmp, path)
-    with open(log_path) as f:
-        info = Build(key, path, seconds, _ptxas_lines(f.read()))
-    with _LOCK:
-        _BUILDS.setdefault(key, info)
-        return _BUILDS[key]
-
-
-def build_all(specs: Iterable[Tuple]) -> list:
-    """Build several (dtype, nv, ConeLayout) specialisations in parallel
-    (one nvcc process per CPU core)."""
-    specs = list(dict.fromkeys(specs))
-    with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as ex:
-        return list(ex.map(lambda a: build(*a), specs))
+    t = _CTYPE[dtype]
+    return nvcc_build.build(
+        key, SOURCE, f"pdip_{t}_{nv}_{lay.n_ort}_{lay.s1}_{lay.s2}",
+        [f"-DDCOL_T={t}", f"-DDCOL_NV={nv}", f"-DDCOL_NORT={lay.n_ort}",
+         f"-DDCOL_S1={lay.s1}", f"-DDCOL_S2={lay.s2}"])
 
 
 def _lib(dtype, nv: int, lay: ConeLayout) -> ctypes.CDLL:
-    key = _key(dtype, nv, lay)
-    lib = _LIBS.get(key)
-    if lib is not None:
-        return lib
-    lib = ctypes.CDLL(build(dtype, nv, lay).path)
-    lib.dcol_pdip_layout.argtypes = [ctypes.POINTER(ctypes.c_int)]
-    lib.dcol_pdip_layout.restype = ctypes.c_int
-    lib.dcol_pdip_solve.argtypes = (
-        [ctypes.c_void_p] * 12 + [ctypes.c_int, ctypes.c_double,
-                                  ctypes.c_double, ctypes.c_double,
-                                  ctypes.c_int, ctypes.c_void_p])
-    lib.dcol_pdip_solve.restype = ctypes.c_int
-    got = (ctypes.c_int * 5)()
-    lib.dcol_pdip_layout(got)
     want = (torch.finfo(dtype).bits // 8, nv, lay.n_ort, lay.s1, lay.s2)
-    if tuple(got) != want:
-        raise RuntimeError(f"library {lib._name} was built for {tuple(got)}, "
-                           f"expected {want}")
-    with _LOCK:
-        return _LIBS.setdefault(key, lib)
+
+    def bind(lib: ctypes.CDLL) -> None:
+        lib.dcol_pdip_layout.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        lib.dcol_pdip_layout.restype = ctypes.c_int
+        lib.dcol_pdip_solve.argtypes = (
+            [ctypes.c_void_p] * 12 + [ctypes.c_int, ctypes.c_double,
+                                      ctypes.c_double, ctypes.c_double,
+                                      ctypes.c_int, ctypes.c_void_p])
+        lib.dcol_pdip_solve.restype = ctypes.c_int
+        got = (ctypes.c_int * 5)()
+        lib.dcol_pdip_layout(got)
+        if tuple(got) != want:
+            raise RuntimeError(f"library {lib._name} was built for "
+                               f"{tuple(got)}, expected {want}")
+
+    return nvcc_build.load(build(dtype, nv, lay), bind)
 
 
 def _soa(a: torch.Tensor) -> torch.Tensor:

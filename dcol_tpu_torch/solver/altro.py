@@ -370,17 +370,35 @@ def forward_pass(sys, params, cfg, X, U, K, k, mu, mux, lambd, rho, hx, hu,
 # Outer AL iteration
 # ---------------------------------------------------------------------------
 
-def make_initial_state(sys, params, cfg, X0, U0) -> AltroState:
-    """Initial solver state: rollout from X0[:, 0] under U0, zero duals
-    (the reference's cold start, ALTRO.py:396-403)."""
+def make_initial_state(sys, params, cfg, X0, U0, duals=None,
+                       rho=None) -> AltroState:
+    """Initial solver state: rollout from X0[:, 0] under U0.
+
+    ``duals`` = (mu (S, N-1, ncu), mux (S, N, ncx), lambd (S, nx)) and
+    ``rho`` ((S,) or a scalar) optionally seed the augmented-Lagrangian
+    state from a previous nearby solve (MPC warm starts across ticks); the
+    defaults are the reference's cold start, zero duals and ``cfg.rho0``
+    (ALTRO.py:396-403)."""
     S = X0.shape[0]
     dt, dev = U0.dtype, U0.device
     X = initial_rollout(sys, params, X0[:, 0].to(dt), U0)
     hx, hu, warm = eval_constraints(sys, params, X, U0)
-    mu = torch.zeros((S, sys.N - 1, sys.ncu), dtype=dt, device=dev)
-    mux = torch.zeros((S, sys.N, sys.ncx), dtype=dt, device=dev)
-    lambd = torch.zeros((S, sys.nx), dtype=dt, device=dev)
-    rho0 = torch.full((S,), cfg.rho0, dtype=dt, device=dev)
+    if duals is None:
+        mu = torch.zeros((S, sys.N - 1, sys.ncu), dtype=dt, device=dev)
+        mux = torch.zeros((S, sys.N, sys.ncx), dtype=dt, device=dev)
+        lambd = torch.zeros((S, sys.nx), dtype=dt, device=dev)
+    else:
+        mu, mux, lambd = (torch.as_tensor(d, dtype=dt, device=dev)
+                          for d in duals)
+        want = ((S, sys.N - 1, sys.ncu), (S, sys.N, sys.ncx), (S, sys.nx))
+        got = (tuple(mu.shape), tuple(mux.shape), tuple(lambd.shape))
+        if got != want:
+            raise ValueError(f"duals (mu, mux, lambd) have shapes {got}, "
+                             f"expected {want}")
+    if rho is None:
+        rho0 = torch.full((S,), cfg.rho0, dtype=dt, device=dev)
+    else:
+        rho0 = torch.as_tensor(rho, dtype=dt, device=dev).expand(S).clone()
     J0 = total_cost(sys, params, X, U0, hx, hu, mu, mux, lambd, rho0)
     z = torch.zeros((S,), dtype=dt, device=dev)
     m = Metrics(*(torch.zeros((S, cfg.metrics_len), dtype=dt, device=dev)
@@ -451,11 +469,13 @@ def altro_iteration(sys, params, cfg, st: AltroState,
         convio=convio_out, metrics=m)
 
 
-def solve(sys, params, cfg: AltroConfig, X0, U0) -> AltroState:
+def solve(sys, params, cfg: AltroConfig, X0, U0, duals=None,
+          rho=None) -> AltroState:
     """Full solves of S scenarios: initial rollout, then AL iterations while
     any scenario is active.  Converged, failed or capped scenarios keep
-    their state."""
-    st = make_initial_state(sys, params, cfg, X0, U0)
+    their state.  ``duals``/``rho`` warm-start the AL state (see
+    :func:`make_initial_state`)."""
+    st = make_initial_state(sys, params, cfg, X0, U0, duals=duals, rho=rho)
     while True:
         active = ~(st.converged | st.failed) & (st.iter < cfg.max_iters)
         if not bool(active.any()):

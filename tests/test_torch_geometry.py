@@ -173,12 +173,18 @@ def test_port_imports_without_jax():
 
     mods = [m.name for m in pkgutil.walk_packages(dcol_tpu_torch.__path__,
                                                   "dcol_tpu_torch.")]
-    assert "dcol_tpu_torch.ops.pdip_cuda" in mods
+    for m in ("ops.pdip_cuda", "ops.fma_peak", "ops.proximity",
+              "solver.mpc", "systems.cone_through_wall", "tools.roofline"):
+        assert "dcol_tpu_torch." + m in mods, m
+    # and the roofline's CPU half runs: the FLOP tally of one PDIP layout
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'dcol_tpu'):\n"
             "    sys.modules[m] = None\n"
             f"for m in {mods!r}:\n"
-            "    __import__(m)\n")
+            "    __import__(m)\n"
+            "from dcol_tpu_torch.ops.cones import ConeLayout\n"
+            "from dcol_tpu_torch.tools.roofline import pdip_work\n"
+            "assert min(pdip_work(4, ConeLayout(12, 0, 0))) > 0\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr

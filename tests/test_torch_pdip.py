@@ -13,7 +13,7 @@ from dcol_tpu.ops.cones import ConeLayout as JLayout
 from dcol_tpu.ops.pdip import solve_socp as jax_solve
 from dcol_tpu.ops.pdip_pallas import solve_socp_pallas
 from dcol_tpu.systems import quadrotor as jquad
-from dcol_tpu_torch.ops import pdip_cuda
+from dcol_tpu_torch.ops import nvcc_build, pdip_cuda
 from dcol_tpu_torch.ops.cones import ConeLayout
 from dcol_tpu_torch.ops.pdip import solve_socp
 from tests.test_pdip_pallas import _padded_batch
@@ -175,7 +175,7 @@ def test_cuda_wrapper_refuses_cpu_tensors_without_building():
     lay = ConeLayout(jlay.n_ort, jlay.s1, jlay.s2)
     with pytest.raises(ValueError, match="CUDA tensors only"):
         pdip_cuda.solve_socp_cuda(T(c), T(G), T(h), lay)
-    assert pdip_cuda._LIBS == {} and pdip_cuda._BUILDS == {}
+    assert nvcc_build._LIBS == {} and nvcc_build._BUILDS == {}
     with pytest.raises(TypeError, match="float32/float64"):
         pdip_cuda._key(torch.float16, 4, lay)
 

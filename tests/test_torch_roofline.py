@@ -1,0 +1,153 @@
+"""Port roofline tool and FMA probe vs the JAX package's tools/roofline.py
+(on the CPU): the dispatch-mode FLOP tally against ``jaxpr_flops`` on toy
+functions, the per-problem PDIP work against the TPU kernel's per-iteration
+instruction count, and the FMA probe's plain version against the closed
+form."""
+
+import importlib.util
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from dcol_tpu.ops.cones import ConeLayout as JLayout
+from dcol_tpu_torch.ops import fma_peak, nvcc_build
+from dcol_tpu_torch.ops.cones import ConeLayout
+from dcol_tpu_torch.systems import quadrotor
+from dcol_tpu_torch.tools import roofline
+
+torch.set_num_threads(1)
+
+_spec = importlib.util.spec_from_file_location(
+    "jax_roofline", os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools", "roofline.py"))
+jroof = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(jroof)
+
+_rng = np.random.default_rng(0)
+_X, _Y = _rng.normal(size=(4, 5)), _rng.normal(size=(4, 5))
+_A, _B = _rng.normal(size=(3, 4, 5)), _rng.normal(size=(3, 5, 6))
+
+TOYS = {
+    "elementwise": (lambda a, b: jnp.sin(a * b + a) - b,
+                    lambda a, b: torch.sin(a * b + a) - b, (_X, _Y)),
+    "batched_matmul": (lambda a, b: a @ b, lambda a, b: a @ b, (_A, _B)),
+    "sum": (lambda a: jnp.sum(a, axis=-1), lambda a: torch.sum(a, dim=-1),
+            (_X,)),
+    "reshape": (lambda a: a.reshape(5, 4).T, lambda a: a.reshape(5, 4).T,
+                (_X,)),
+}
+
+
+@pytest.mark.parametrize("toy", sorted(TOYS))
+def test_tally_matches_jaxpr_flops(toy):
+    """The dispatch-mode tally applies jaxpr_flops's rules exactly:
+    elementwise = output elements, matmul = 2mnk, reduction = input
+    elements, reshape/transpose = 0."""
+    jfn, tfn, args = TOYS[toy]
+    want = jroof.jaxpr_flops(jfn, *args)
+    got = roofline.tally_flops(tfn, *[torch.tensor(a) for a in args])
+    assert got == want
+    assert {"elementwise": 80, "batched_matmul": 720, "sum": 20,
+            "reshape": 0}[toy] == want
+
+
+@pytest.mark.parametrize("layout", [(5, 4, 4, 4), (4, 12, 0, 0)])
+def test_pdip_work_independent_of_batch(layout):
+    """Per-problem (init, per-iteration) FLOPs are the same at B=1 (where
+    pdip_work takes them) and B=8: the tally of a solve is linear in B."""
+    nv, n_ort, s1, s2 = layout
+    lay = ConeLayout(n_ort, s1, s2)
+    one = roofline.pdip_work(nv, lay, torch.float32)
+    tally = {it: roofline.solve_flops(nv, lay, torch.float32, 8, it) / 8
+             for it in (1, 2)}
+    assert one == (2 * tally[1] - tally[2], tally[2] - tally[1])
+    assert one[0] > 0 and one[1] > 0
+
+
+def test_pdip_work_tracks_kernel_instruction_count():
+    """For each quadrotor group the plain solve's FLOPs per iteration lie
+    within [1.0, 1.4] x the TPU kernel's vector instructions per iteration
+    and lane (count_kernel_iteration, traced on the CPU).  The two count
+    the same Mehrotra iteration in two formulations: measured 1.17-1.21,
+    the plain version's matrix products at 2mnk against the kernel's
+    unrolled loops."""
+    sys_ = quadrotor.make_system()
+    for pl, idx in sys_.scene.groups:
+        per_iter = roofline.pdip_work(pl.nv, ConeLayout(pl.n_ort, pl.s1,
+                                                        pl.s2))[1]
+        instr, _, _ = jroof.count_kernel_iteration(
+            JLayout(pl.n_ort, pl.s1, pl.s2), pl.nv)
+        assert 1.0 <= per_iter / instr <= 1.4, (idx, per_iter, instr)
+
+
+def test_analyze_covers_every_group():
+    rows = roofline.analyze(out=lambda *a: None)
+    got = [(r["system"], r["nv"], r["n_ort"], r["s1"], r["s2"])
+           for r in rows["groups"]]
+    assert got == [("quadrotor", 5, 4, 4, 4), ("quadrotor", 5, 2, 4, 4),
+                   ("quadrotor", 4, 0, 4, 4), ("quadrotor", 4, 1, 4, 3),
+                   ("quadrotor", 4, 8, 4, 0), ("quadrotor", 6, 5, 4, 4),
+                   ("quadrotor", 4, 6, 4, 0), ("piano", 4, 12, 0, 0),
+                   ("cone", 4, 7, 3, 0)]
+    m = rows["member"]
+    assert m["N"] == 100
+    assert m["dynamics_jacobians"] > 10 * m["initial_rollout"] > 0
+
+
+def _probe_input(dtype, L=256):
+    rng = np.random.default_rng(1)
+    x = np.concatenate([rng.uniform(0.5, 1.0, (8, L)),
+                        rng.uniform(0.99, 0.9999, (1, L)),
+                        rng.uniform(1e-3, 1e-2, (1, L))])
+    return torch.tensor(x, dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12),
+                                        (torch.float32, 1e-4)])
+def test_fma_chains_matches_closed_form(dtype, rtol):
+    """The plain probe, a b^n + c (1 - b^n) / (1 - b) per chain with
+    n = 8 inner: 1e-12 relative in f64 and 1e-4 in f32 (1,600 roundings
+    of a contracting recurrence), on random lanes and on the JAX tool's
+    constant 0.9999."""
+    for x in (_probe_input(dtype), torch.full((10, 64), 0.9999, dtype=dtype)):
+        got = fma_peak.fma_chains(x, 200)
+        want = fma_peak.closed_form(x, 200)
+        assert got.dtype == dtype and got.shape == (x.shape[1],)
+        np.testing.assert_allclose(got.double().numpy(), want.numpy(),
+                                   rtol=rtol, atol=0)
+
+
+def test_card_paths_refuse_cpu_without_building():
+    """No fallback: the kernel's wrapper and the card commands raise on the
+    CPU before anything is built."""
+    x = _probe_input(torch.float32)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        fma_peak.fma_chains_cuda(x)
+    with pytest.raises(TypeError, match="float32/float64"):
+        fma_peak.fma_chains_cuda(x.half())
+    with pytest.raises(RuntimeError, match="needs CUDA"):
+        roofline.peak(device="cpu")
+    with pytest.raises(RuntimeError, match="needs CUDA"):
+        roofline.kernel_cold(1e12, device="cpu")
+    assert not any(k[0] == "fma_peak" for k in nvcc_build._BUILDS)
+
+
+@pytest.mark.cuda
+def test_fma_kernel_matches_plain_on_card():
+    """Kernel vs plain version and closed form on the card (skips without
+    one); 64 FMAs per pass in the SASS."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    for dtype, rtol in ((torch.float64, 1e-12), (torch.float32, 1e-4)):
+        x = _probe_input(dtype).cuda()
+        n0 = fma_peak.launches
+        got = fma_peak.fma_chains_cuda(x, 200)
+        assert fma_peak.launches == n0 + 1
+        np.testing.assert_allclose(got.double().cpu().numpy(),
+                                   fma_peak.closed_form(x, 200).cpu().numpy(),
+                                   rtol=rtol, atol=0)
+        assert fma_peak.sass_fma_count(dtype)[0] == fma_peak.FMAS_PER_PASS

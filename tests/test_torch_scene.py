@@ -12,12 +12,13 @@ import jax.numpy as jnp
 
 from dcol_tpu.ops.proximity import proximity
 from dcol_tpu.solver import altro as jaltro
+from dcol_tpu.systems import cone_through_wall as jcone
 from dcol_tpu.systems import piano_mover as jpiano
 from dcol_tpu.systems import quadrotor as jquad
 from dcol_tpu_torch.convert import params_from_numpy, warm_from_numpy
 from dcol_tpu_torch.geometry import primitives as prim
 from dcol_tpu_torch.solver import altro
-from dcol_tpu_torch.systems import piano_mover, quadrotor
+from dcol_tpu_torch.systems import cone_through_wall, piano_mover, quadrotor
 from dcol_tpu_torch.systems.base import CollisionScene, ProximityOptions
 
 torch.set_num_threads(1)
@@ -173,12 +174,13 @@ def test_grouped_envelope_grads_match_fd():
                                        rtol=2e-3, atol=2e-5)
 
 
-@pytest.mark.parametrize("system", ["quadrotor", "piano_mover"])
+@pytest.mark.parametrize("system", ["quadrotor", "piano_mover", "cone"])
 def test_dynamics_and_jacobians_match_jax(system):
     """RK4 step and its forward-mode Jacobians vs the JAX package's
     (f64, rtol 1e-12 / atol 1e-12: same formulas, summation order only)."""
     jmod, mod = {"quadrotor": (jquad, quadrotor),
-                 "piano_mover": (jpiano, piano_mover)}[system]
+                 "piano_mover": (jpiano, piano_mover),
+                 "cone": (jcone, cone_through_wall)}[system]
     jsys, jparams, _, _, _ = jmod.make_problem(dtype=jnp.float64,
                                                backend="xla")
     sys_, params, _, _, _ = mod.make_problem(F64, "cpu")
