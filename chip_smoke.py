@@ -6,23 +6,28 @@ Phases, in order; any failure ends the run with a nonzero exit:
 
   1. device: require CUDA; print the card's name and power limit;
   2. build: compile every kernel specialisation the run uses, all at once
-     (nvcc, sm_90a): the PDIP kernel for each layout and dtype, and the FMA
-     probe in float32 and float64; print the build seconds and the ptxas
-     register/spill report;
+     (nvcc, sm_90a): the PDIP kernel for each layout and dtype (with the
+     wrapper's team size), and the FMA probe in float32 and float64; print
+     the build seconds and the ptxas registers and spill bytes, and fail if
+     a float32 specialisation spills;
   3. the PDIP kernel vs its plain PyTorch version on the card, on the
      quadrotor constraint batch at Xref for 128 scenarios (7 obstacle groups,
      140,800 problems; cold, warm, warm+skip, f32) and on the golden pair
-     batch (f64, against tests/goldens/pairs.json); times from CUDA events;
-     the same checks run on the cone's batch in phase 7;
+     batch (f64, against tests/goldens/pairs.json); times from CUDA events,
+     and each launch's bound (tools/roofline.py); the same checks run on
+     the cone's batch in phase 7;
   4. the main path: the f32 quadrotor (N=100, 11 obstacles) solved for 128
-     perturbed scenarios through the kernel, checked for convergence and,
-     independently, for collision-free final trajectories; then the f64 piano
-     mover against its golden trajectory;
+     perturbed scenarios through the kernel, checked for convergence
+     (128/128 in 44-55 mean iterations) and, independently, for
+     collision-free final trajectories; then the f64 piano mover against its
+     golden trajectory (35 iterations); the PDIP launches of each, by start
+     (cold, warm, warm+skip) and batch size;
   5. the FMA probe vs its plain version and the closed form on the card, on
      random lanes and on the inputs of both grids the roofline's ``peak``
      launches; its SASS (64 FMAs per loop pass); then ``peak`` at those two
-     grid sizes and the roofline's ``kernel``: per-group utilization of the
-     PDIP kernel;
+     grid sizes and the roofline's ``kernel``: the PDIP kernel's time, bound
+     and share of it on the quadrotor's cold (batch 64 and 128), warm and
+     warm+skip launches (roofline shapes a-d);
   6. proximity: the 27 golden pairs through ``proximity_alpha`` (f64) and
      their envelope gradients through ``.backward()``; each pair's alpha,
      x, z and iteration count on the card against the CPU;
@@ -43,6 +48,7 @@ chiprun_out/chip_smoke.json.
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -68,19 +74,6 @@ def log(*a):
 def check(cond, msg):
     if not cond:
         raise AssertionError(msg)
-
-
-def cuda_ms(fn, reps=3):
-    """Mean device time of fn() over reps runs, after one warm-up run."""
-    fn()
-    torch.cuda.synchronize()
-    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
 
 
 def golden_shapes():
@@ -142,13 +135,17 @@ class Run:
 
         torch.cuda.synchronize()
         pdip_cuda.launches = 0
+        pdip_cuda.tally.clear()
         fma_peak.launches = 0
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = {"pdip": pdip_cuda.launches, "fma_peak": fma_peak.launches}
-        self.record["paths"][name] = dict(counts, wall_s=wall)
+        by_shape = {" ".join(map(str, k)): n
+                    for k, n in sorted(pdip_cuda.tally.items())}
+        self.record["paths"][name] = dict(counts, wall_s=wall,
+                                          pdip_by_shape=by_shape)
         log(f"[launches] {name}: {counts} in {wall:.3f} s")
         for k in kernels:
             check(counts[k] > 0, f"path {name!r} launched no {k} kernel")
@@ -156,6 +153,16 @@ class Run:
 
     def launches(self, kernel):
         return sum(p[kernel] for p in self.record["paths"].values())
+
+    def log_shapes(self, name):
+        """The PDIP launches of path ``name`` by start and batch size: the
+        wrapper's tally, keyed (B, nv, n_ort, s1, s2, start)."""
+        by = {}
+        for key, n in self.record["paths"][name]["pdip_by_shape"].items():
+            B, *_, start = key.split()
+            by[(start, int(B))] = by.get((start, int(B)), 0) + n
+        log(f"[launches] {name}, PDIP by start and B: " + ", ".join(
+            f"{st} B={B:,}: {n}" for (st, B), n in sorted(by.items())))
 
 
 # -- 2. build ----------------------------------------------------------------
@@ -191,21 +198,39 @@ def phase_build(run):
     log(f"[build] {len(builds)} specialisations in {build_wall:.2f} s wall")
     run.record["build_wall_s"] = build_wall
     run.record["builds"] = []
+    f32_spills = []
     for b in builds:
         if b.key[0] == "pdip":
-            _, dt, nv, n_ort, s1, s2 = b.key
-            name = f"pdip {str(dt)[6:]} nv={nv} n_ort={n_ort} s1={s1} s2={s2}"
+            _, dt, nv, n_ort, s1, s2, team = b.key
+            name = (f"pdip {str(dt)[6:]} nv={nv} n_ort={n_ort} s1={s1} "
+                    f"s2={s2} team={team}")
         else:
-            name = f"fma_peak {str(b.key[1])[6:]}"
+            dt = b.key[1]
+            name = f"fma_peak {str(dt)[6:]}"
         secs = "cached" if b.seconds is None else f"{b.seconds:.2f} s"
-        regs = [ln.split("Used ")[1].split()[0] for ln in b.ptxas
+        regs = [int(ln.split("Used ")[1].split()[0]) for ln in b.ptxas
                 if "Used " in ln]
-        spills = sorted({ln.split("frame, ")[1] for ln in b.ptxas
-                         if "frame, " in ln})
+        spill = spill_bytes(b.ptxas)
         log(f"[build] {name}: {secs}; registers per kernel variant "
-            f"{'/'.join(regs)}; {' | '.join(spills)}")
+            f"{'/'.join(map(str, regs))}; spill bytes (stores + loads, "
+            f"worst variant) {spill}")
         run.record["builds"].append({"spec": name, "seconds": b.seconds,
+                                     "registers": regs, "spill_bytes": spill,
                                      "ptxas": list(b.ptxas)})
+        if dt == F32 and spill:
+            f32_spills.append(name)
+    check(not f32_spills, f"f32 specialisations spill: {f32_spills}")
+
+
+def spill_bytes(ptxas):
+    """The largest spill stores + loads of any kernel variant in a ptxas -v
+    report."""
+    worst = 0
+    for ln in ptxas:
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            worst = max(worst, int(m.group(1)) + int(m.group(2)))
+    return worst
 
 
 def compare_pdip(tag, c, G, h, cl, kw):
@@ -286,6 +311,7 @@ def phase_pdip(run):
     from dcol_tpu_torch.ops.pdip import solve_socp
     from dcol_tpu_torch.parallel.batch import perturb_scenarios
     from dcol_tpu_torch.systems import quadrotor
+    from dcol_tpu_torch.tools import roofline
 
     dev = run.dev
     sys_, params, X0, U0, cfg = quadrotor.make_problem(F32, dev)
@@ -301,6 +327,7 @@ def phase_pdip(run):
     opts = scene.opts
     kw = dict(tol=opts.tol, max_iters=opts.max_iters, jitter=opts.jitter)
     n_total, max_err, ms_total, plain_total = 0, 0.0, 0.0, 0.0
+    bound_total, bound_by = 0.0, set()
     run.record["groups"] = []
     for (lay, idx, cl), (c, G, h) in zip(groups, grouped):
         B = c.shape[0] * c.shape[1] * c.shape[2]
@@ -310,19 +337,28 @@ def phase_pdip(run):
         row = compare_pdip(f"obstacles {idx}", c, G, h, cl, kw)
         row["layout"] = [lay.nv, cl.n_ort, cl.s1, cl.s2]
         max_err = max(max_err, row["max_abs_err"])
-        ms = cuda_ms(lambda: pdip_cuda.solve_socp_cuda(c, G, h, cl, **kw))
-        plain = cuda_ms(lambda: solve_socp(c, G, h, cl, **kw))
+        ms, sol = roofline.time_launch(
+            lambda: pdip_cuda.solve_socp_cuda(c, G, h, cl, **kw), reps=3)
+        plain, _ = roofline.time_launch(
+            lambda: solve_socp(c, G, h, cl, **kw), reps=3)
+        acc = roofline.account(lay.nv, cl, "cold", B, ms,
+                               float(sol.iters.double().sum()))
         ms_total += ms
         plain_total += plain
-        row.update(kernel_ms=ms, plain_ms=plain)
+        bound_total += acc["bound_ms"]
+        row.update(kernel_ms=ms, plain_ms=plain, bound_ms=acc["bound_ms"],
+                   bound_by=acc["bound_by"])
+        bound_by.add(acc["bound_by"])
         run.record["groups"].append(row)
         log(f"[pdip] obstacles {idx} nv={lay.nv} {cl} B={B}: "
-            f"{describe(row)}; cold time kernel {ms:.3f} ms, plain "
-            f"{plain:.3f} ms")
+            f"{describe(row)}; cold time kernel {ms:.4f} ms, plain "
+            f"{plain:.3f} ms, bound {1e3 * acc['bound_ms']:.2f} us "
+            f"({acc['bound_by']})")
     check(n_total == BATCH * sys_.N * scene.n_obs,
           f"constraint batch has {n_total} problems")
     log(f"[pdip] cold constraint batch of {n_total} problems: kernel "
-        f"{ms_total:.3f} ms, plain {plain_total:.3f} ms (sum over 7 groups)")
+        f"{ms_total:.4f} ms, plain {plain_total:.3f} ms, bound "
+        f"{1e3 * bound_total:.2f} us (sum over 7 groups)")
 
     gc, gG, gh, glay, gold = golden_batch(F64, dev)
     gout = pdip_cuda.solve_socp_cuda(gc, gG, gh, glay, tol=1e-9, max_iters=40)
@@ -338,7 +374,9 @@ def phase_pdip(run):
         f"iters {gout.iters.tolist()} (plain {gref.iters.tolist()})")
     run.record.update(golden_f64_max_err=gerr, constraint_batch=n_total)
     run.record["pdip"] = {"max_abs_err": max_err, "ms": ms_total,
-                          "plain_ms": plain_total}
+                          "plain_ms": plain_total, "bound_ms": bound_total,
+                          "bound_by": (bound_by.pop() if len(bound_by) == 1
+                                       else "mixed")}
 
 
 # -- 4. the main path ----------------------------------------------------------
@@ -364,8 +402,9 @@ def phase_quadrotor(run):
     log(f"[main] f32 quadrotor N={sys_.N}, batch {BATCH}: {wall:.3f} s wall, "
         f"converged {n_conv}/{BATCH}, failed {int(st.failed.sum())}, "
         f"mean iters {mean_it:.4f}, max iters {max_it}")
-    check(n_conv >= BATCH - 2, f"only {n_conv}/{BATCH} converged")
-    check(40.0 <= mean_it <= 60.0, f"mean ALTRO iterations {mean_it}")
+    run.log_shapes("quadrotor solve_batch")
+    check(n_conv == BATCH, f"only {n_conv}/{BATCH} converged")
+    check(44.0 <= mean_it <= 55.0, f"mean ALTRO iterations {mean_it}")
     # independent check of the result: a cold re-evaluation of the final
     # trajectories finds no collision on the converged scenarios
     hx, _, _ = altro.eval_constraints(sys_, params_b, st.X, st.U)
@@ -391,6 +430,7 @@ def phase_quadrotor(run):
     log(f"[main] f64 piano mover: {wall:.3f} s, converged "
         f"{bool(stp.converged[0])}, iters {int(stp.iter[0])} (golden "
         f"{int(gp['iters'])}), max |X - X_golden| {perr:.3e}")
+    run.log_shapes("piano solve_batch")
     check(bool(stp.converged[0]) and int(stp.iter[0]) == int(gp["iters"])
           and perr < 1e-3, "piano mover misses its golden")
 
@@ -446,9 +486,16 @@ def phase_roofline(run):
         check(body == fma_peak.FMAS_PER_PASS,
               f"FMA probe {key}: {body} FMAs in the SASS loop body, not 64")
         x_jax = roofline.peak_input(dtype, grids["jax"], dev)
-        ms = cuda_ms(lambda: fma_peak.fma_chains_cuda(x_jax, inner))
-        plain = cuda_ms(lambda: fma_peak.fma_chains(x_jax, inner))
+        ms, _ = roofline.time_launch(
+            lambda: fma_peak.fma_chains_cuda(x_jax, inner), reps=3)
+        plain, _ = roofline.time_launch(
+            lambda: fma_peak.fma_chains(x_jax, inner), reps=3)
+        lanes = grids["jax"]
+        bound, by = roofline.bound_seconds(
+            2.0 * lanes * inner * fma_peak.FMAS_PER_PASS,
+            (x_jax.numel() + lanes) * x_jax.element_size(), dtype)
         rec[key].update(
+            bound_ms=1e3 * bound, bound_by=by,
             max_abs_err=max(g["max_abs_err"]
                             for g in rec[key]["grids"].values()),
             sass_loop_fmas=body, sass_total_fmas=total, ms=ms,
@@ -468,12 +515,13 @@ def phase_roofline(run):
     peak_flops = f32_full["tflops"] * 1e12
 
     res, _ = run.path("roofline kernel",
-                      lambda: roofline.kernel_cold(peak_flops, device=dev,
-                                                   out=log), ["pdip"])
+                      lambda: roofline.kernel(peak_flops, device=dev,
+                                              out=log), ["pdip"])
     run.record["roofline_kernel"] = res
-    for g in res["groups"]:
-        check(0.0 < g["utilization"] <= 1.0,
-              f"group {g['obstacles']}: utilization {g['utilization']}")
+    for r in res["rows"]:
+        check(0.0 < r["of_peak"] <= 1.0 and 0.0 < r["of_bound"] <= 1.0,
+              f"shape {r['shape']} group {r['obstacles']}: {r['of_peak']} of "
+              f"the peak, {r['of_bound']} of the bound")
 
 
 # -- 6. proximity ---------------------------------------------------------------
@@ -725,12 +773,15 @@ def main():
         {"name": "pdip", "route": "cuda",
          "source": "dcol_tpu_torch/csrc/pdip.cu", "replaces": PDIP_TPU_KERNEL,
          "launches": run.launches("pdip"), "max_abs_err": pdip["max_abs_err"],
-         "ms": pdip["ms"], "plain_ms": pdip["plain_ms"]},
+         "ms": pdip["ms"], "plain_ms": pdip["plain_ms"],
+         "bound_ms": pdip["bound_ms"], "bound_by": pdip["bound_by"],
+         "library_ms": None},
         {"name": "fma_peak", "route": "cuda",
          "source": "dcol_tpu_torch/csrc/fma_peak.cu",
          "replaces": FMA_TPU_KERNEL, "launches": run.launches("fma_peak"),
          "max_abs_err": fma["max_abs_err"], "ms": fma["ms"],
-         "plain_ms": fma["plain_ms"]}]}
+         "plain_ms": fma["plain_ms"], "bound_ms": fma["bound_ms"],
+         "bound_by": fma["bound_by"], "library_ms": None}]}
     run.record["kernels"] = kernels["kernels"]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:

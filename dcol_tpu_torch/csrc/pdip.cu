@@ -1,4 +1,4 @@
-// Batched PDIP conic solver: one tiny SOCP per thread, for NVIDIA Hopper.
+// Batched PDIP conic solver for NVIDIA Hopper: a team of lanes per problem.
 //
 //     min c'x   s.t.   G x + s = h,   s in R^NORT_+ x SOC(S1) x SOC(S2)
 //
@@ -10,40 +10,60 @@
 // bring2cone) or warm start (previous s, z shifted inward by `margin`, then
 // bring2cone); skip lanes start done and return the warm-initialised iterate.
 //
-// What bounds it on the card: arithmetic and registers, not memory.  A
-// problem is nv <= 6 columns by nr <= 13 rows; one Mehrotra iteration is a
-// few thousand dependent flops (two Cholesky solves, ~10 scaling applies,
-// four cone line searches, ~50 divides/square roots) against ~100 values of
-// input read once.  The per-problem working set (G, W^{-1}G, L, x, s, z and
-// the search directions) is the constraint: G and W^{-1}G alone are 2*nv*nr
-// values, 156 for the (6, 13) layout, which is over the 255-register limit
-// once everything else is live.
+// What bounds it on the card.  A problem is nv <= 6 columns by nr <= 18
+// rows, read once (429 B for the f32 5/4/4/4 layout cold, 546 B warm) and
+// then iterated on: one Mehrotra iteration is ~4 kFLOP, much of it in
+// dependent chains (two Cholesky solves, ~10 scaling applies, four cone
+// line searches, ~50 divides and square roots).  On the main path's
+// launches (B = 6,400-102,400, 2-15 iterations) the bound is arithmetic for
+// cold launches and memory for warm ones, a few microseconds either way;
+// what the kernel actually waits on is latency and issue slots.  The first
+// version (one problem per thread) had 50-800 blocks of 128 threads for 132
+// SMs, 212-255 registers a thread, and nothing to hide each thread's chain.
 //
 // What the design does about it:
-//   * one problem per thread, 128 threads a block, grid = ceil(B/128), the
-//     ragged edge masked; problems never talk to each other, so there is no
-//     shared memory, no synchronisation and no divergence between problems
-//     except the data-dependent exit (a thread leaves the loop when its
-//     problem is done);
-//   * the layout (NV, NORT, S1, S2) and the type are template parameters
-//     fixed by -D defines at build time, so every loop unrolls and every
-//     per-problem vector is a register array with constant indices;
-//   * operands are struct-of-arrays in device memory (G as (nv*nr, B), h as
-//     (nr, B), ...), so neighbouring threads read neighbouring addresses and
-//     every load and store is coalesced;
-//   * divides used more than once are taken once as reciprocals.
-// Spills for the widest layouts are accepted in this version (ptxas -v
-// reports them); keeping G in shared memory is the next step.
+//   * a team of TEAM lanes (a power of two from 2 to 32) solves one problem,
+//     so a launch has TEAM times the threads.  Rows are dealt so that a
+//     cone block never straddles lanes: lane l holds orthant rows l,
+//     l + TEAM, ... and second-order-cone block l whole (see Team below).
+//     Each cone operation then runs on the lane that holds the block, with
+//     no exchange; the two blocks run side by side on lanes 0 and 1.  x, c,
+//     dx, the Cholesky factor and its reciprocal diagonal are replicated on
+//     every lane;
+//   * sums over all rows (dot products, G'z, the Gram matrix of W^{-1}G)
+//     are __shfl_xor_sync butterflies over the team, which leave the same
+//     bits on every lane; the line search's minimum and bring2cone's
+//     maximum are butterflies too, then taken from lane 0.  So every lane
+//     takes the same branch at every exit and step test, and the team
+//     leaves its loop together;
+//   * a block's sums are taken on its lane in sequence, in the order of the
+//     one-thread version (the warm start's bring2cone stays bit-identical
+//     to the plain version's);
+//   * every shuffle names the team's own lanes, never the whole warp: the
+//     teams of one warp leave their loops at different iterations;
+//   * operands are read where they lie, row-major: c (B, nv), G (B, nr, nv),
+//     h (B, nr), warm x (B, nv), s and z (B, nr); a team reads its problem's
+//     contiguous block and writes x, s and z back the same way, so the
+//     wrapper copies nothing;
+//   * a skipped problem returns its warm-initialised iterate and reads
+//     neither G, h nor c;
+//   * the layout, the type and TEAM are template parameters fixed by -D
+//     defines at build time, so every loop unrolls and every per-lane vector
+//     is a register array with constant indices.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <type_traits>
+
 #if !defined(DCOL_T) || !defined(DCOL_NV) || !defined(DCOL_NORT) || \
-    !defined(DCOL_S1) || !defined(DCOL_S2)
-#error "build with -DDCOL_T=float|double -DDCOL_NV= -DDCOL_NORT= -DDCOL_S1= -DDCOL_S2="
+    !defined(DCOL_S1) || !defined(DCOL_S2) || !defined(DCOL_TEAM)
+#error "build with -DDCOL_T=float|double -DDCOL_NV= -DDCOL_NORT= -DDCOL_S1= -DDCOL_S2= -DDCOL_TEAM="
 #endif
 
 namespace {
+
+constexpr int kThreads = 128;
 
 __device__ __forceinline__ float dsqrt(float v) { return sqrtf(v); }
 __device__ __forceinline__ double dsqrt(double v) { return sqrt(v); }
@@ -61,263 +81,381 @@ template <typename T> __device__ __forceinline__ T vmax(T a, T b) {
   return (a != a || a > b) ? a : b;
 }
 
-template <typename T, int NV, int NORT, int S1, int S2>
-struct Pdip {
+// ---- one SOC block, in slots OFF .. OFF+S-1 of a lane's row array --------
+// A lane holds its rows in one register array; a block it owns lies whole in
+// it, head first.  A block shorter than S is padded with zeros, which add
+// exact zeros to every sum below.
+template <int S, int OFF, typename T, int N>
+__device__ __forceinline__ T soc_quad(const T (&x)[N]) {
+  T t = T(0);
+#pragma unroll
+  for (int i = 1; i < S; ++i) t += x[OFF + i] * x[OFF + i];
+  return x[OFF] * x[OFF] - t;
+}
+
+template <int S, int OFF, typename T, int N>
+__device__ __forceinline__ T soc_tail_norm(const T (&x)[N]) {
+  T t = T(0);
+#pragma unroll
+  for (int i = 1; i < S; ++i) t += x[OFF + i] * x[OFF + i];
+  return dsqrt(t);
+}
+
+// Nesterov-Todd scaling of one SOC block: eta, 1/eta, wbar (wbar' J wbar =
+// 1) and 1/(1 + wbar0)
+template <typename T, int S>
+struct SocScale {
+  T eta, ieta, iw, wb[S];
+};
+
+template <int S, int OFF, typename T, int N>
+__device__ __forceinline__ void soc_nt(const T (&s)[N], const T (&z)[N],
+                                       SocScale<T, S>& W) {
+  const T tiny = T(1e-25);
+  const T js = vmax(soc_quad<S, OFF>(s), tiny);
+  const T jz = vmax(soc_quad<S, OFF>(z), tiny);
+  const T rs = T(1) / dsqrt(js), rz = T(1) / dsqrt(jz);
+  T d = T(0);
+#pragma unroll
+  for (int i = 0; i < S; ++i) d += (s[OFF + i] * rs) * (z[OFF + i] * rz);
+  const T half_ig = T(1) / (T(2) * dsqrt((T(1) + d) / T(2)));
+  W.wb[0] = (s[OFF] * rs + z[OFF] * rz) * half_ig;
+#pragma unroll
+  for (int i = 1; i < S; ++i)
+    W.wb[i] = (s[OFF + i] * rs - z[OFF + i] * rz) * half_ig;
+  W.eta = dpow(js / jz, T(0.25));
+  W.ieta = T(1) / W.eta;
+  W.iw = T(1) / (T(1) + W.wb[0]);
+}
+
+// o = eta Wbar v (INV = false) or its inverse, on the block's slots
+template <bool INV, int S, int OFF, typename T, int N>
+__device__ __forceinline__ void soc_apply(const SocScale<T, S>& W,
+                                          const T (&v)[N], T (&o)[N]) {
+  T w1v1 = T(0);
+#pragma unroll
+  for (int i = 1; i < S; ++i) w1v1 += W.wb[i] * v[OFF + i];
+  const T sg = INV ? T(-1) : T(1);
+  const T sc = INV ? W.ieta : W.eta;
+  const T coef = sg * v[OFF] + w1v1 * W.iw;
+  const T head = W.wb[0] * v[OFF] + sg * w1v1;
+#pragma unroll
+  for (int i = 1; i < S; ++i) o[OFF + i] = (v[OFF + i] + coef * W.wb[i]) * sc;
+  o[OFF] = head * sc;
+}
+
+template <int S, int OFF, typename T, int N>
+__device__ __forceinline__ void soc_prod(const T (&u)[N], const T (&v)[N],
+                                         T (&o)[N]) {
+  T head = T(0);
+#pragma unroll
+  for (int i = 0; i < S; ++i) head += u[OFF + i] * v[OFF + i];
+#pragma unroll
+  for (int i = 1; i < S; ++i)
+    o[OFF + i] = u[OFF] * v[OFF + i] + v[OFF] * u[OFF + i];
+  o[OFF] = head;
+}
+
+// the inverse Jordan product's factors that depend on lambda only
+template <typename T>
+struct SocInv {
+  T irho, iu, rho;
+};
+
+template <int S, int OFF, typename T, int N>
+__device__ __forceinline__ void soc_inv_pre(const T (&u)[N], SocInv<T>& P) {
+  P.rho = soc_quad<S, OFF>(u);
+  P.irho = T(1) / P.rho;
+  P.iu = T(1) / u[OFF];
+}
+
+// o with u o o = w on the block's slots, u the cached lambda
+template <int S, int OFF, typename T, int N>
+__device__ __forceinline__ void soc_inv(const T (&u)[N], const SocInv<T>& P,
+                                        const T (&w)[N], T (&o)[N]) {
+  T nu = T(0);
+#pragma unroll
+  for (int i = 1; i < S; ++i) nu += u[OFF + i] * w[OFF + i];
+  const T a = nu * P.iu - w[OFF];
+  const T b = P.rho * P.iu;
+  const T head = u[OFF] * w[OFF] - nu;
+#pragma unroll
+  for (int i = 1; i < S; ++i)
+    o[OFF + i] = (a * u[OFF + i] + b * w[OFF + i]) * P.irho;
+  o[OFF] = head * P.irho;
+}
+
+// largest step in [0, 1] keeping y + a d in the SOC block
+template <int S, int OFF, typename T, int N>
+__device__ __forceinline__ T soc_ls(const T (&y)[N], const T (&d)[N]) {
+  const T tiny = T(1e-25);
+  const T nu = vmax(soc_quad<S, OFF>(y), tiny);
+  const T sq = dsqrt(nu);
+  const T isq = T(1) / sq, inu = T(1) / nu;
+  T zeta = y[OFF] * d[OFF];
+#pragma unroll
+  for (int i = 1; i < S; ++i) zeta -= y[OFF + i] * d[OFF + i];
+  const T rho0 = zeta * inu;
+  const T coef = (zeta * isq + d[OFF]) / (y[OFF] * isq + T(1));
+  T rn = T(0);
+#pragma unroll
+  for (int i = 1; i < S; ++i) {
+    const T r = d[OFF + i] * isq - coef * y[OFF + i] * inu;
+    rn += r * r;
+  }
+  rn = dsqrt(rn);
+  const T lim = T(1) / vmax(rn - rho0, tiny);
+  return rn > rho0 ? vmin(T(1), lim) : T(1);
+}
+
+// ---- the team -------------------------------------------------------------
+// Rows of the problem are dealt to the TEAM lanes so that a cone block never
+// straddles two lanes: lane l holds orthant rows l, l + TEAM, ... (RO of
+// them) in slots 0 .. RO-1, and SOC block l (block 1 or 2 of those present)
+// whole in the next SMAX slots.  Slots a lane does not fill hold zeros.
+template <typename T, int NV, int NORT, int S1, int S2, int TEAM>
+struct Team {
+  static_assert(TEAM >= 2 && TEAM <= 32 && (TEAM & (TEAM - 1)) == 0,
+                "TEAM must be a power of two from 2 to 32");
   static constexpr int NR = NORT + S1 + S2;
-  static constexpr int DEG = NORT + (S1 > 0) + (S2 > 0);
-  static constexpr int O1 = NORT;       // row offset of SOC block 1
-  static constexpr int O2 = NORT + S1;  // row offset of SOC block 2
+  static constexpr int NSOC = (S1 > 0) + (S2 > 0);
+  static constexpr int DEG = NORT + NSOC;
   static constexpr int NL = NV * (NV + 1) / 2;
-  static constexpr int NO_ = NORT > 0 ? NORT : 1;
-  static constexpr int S1_ = S1 > 0 ? S1 : 1;
-  static constexpr int S2_ = S2 > 0 ? S2 : 1;
+  static constexpr int RO = (NORT + TEAM - 1) / TEAM;  // orthant slots
+  static constexpr int NB = NSOC > 0;  // blocks a lane can hold
+  static constexpr int SMAX = S1 > S2 ? S1 : S2;
+  static constexpr int RS = RO + NB * SMAX;  // slots a lane holds
+  static constexpr int RS_ = RS > 0 ? RS : 1;
+  // the present SOC blocks: row offset and size of the first and second
+  static constexpr int BO0 = S1 > 0 ? NORT : NORT + S1;
+  static constexpr int BS0 = S1 > 0 ? S1 : S2;
+  static constexpr int BO1 = NORT + S1;
+  static constexpr int BS1 = S2;
+  static constexpr int NB_ = NB > 0 ? NB : 1;
+  static constexpr int SM_ = SMAX > 0 ? SMAX : 1;
 
-  typedef T Vec[NR];
-  typedef T Col[NV];
+  typedef T Rows[RS_];  // a row-indexed vector: the rows this lane holds
+  typedef T Col[NV];    // replicated on every lane
 
-  static __device__ __forceinline__ T tiny() { return T(1e-25); }
-
-  // Nesterov-Todd scaling: orthant w = sqrt(s/z) (and 1/w); per SOC block
-  // eta, 1/eta, wbar (wbar' J wbar = 1) and 1/(1 + wbar0).
   struct Scaling {
-    T w[NO_], wi[NO_];
-    T eta1, ieta1, iw1, wb1[S1_];
-    T eta2, ieta2, iw2, wb2[S2_];
+    T w[RO > 0 ? RO : 1], wi[RO > 0 ? RO : 1];  // orthant: sqrt(s/z), 1/that
+    SocScale<T, SM_> k[NB_];
   };
+  struct InvPre {
+    T ol[RO > 0 ? RO : 1];  // orthant: 1/lambda
+    SocInv<T> k[NB_];
+  };
+
+  unsigned mask;  // the team's lanes within the warp
+  int lane;       // 0 .. TEAM-1
+
+  // block slot offset of the lane's j-th block
+  static __host__ __device__ constexpr int boff(int j) { return RO + j * SMAX; }
+  // whether the lane holds a block (its j-th, j = 0): lane l holds present
+  // block l
+  __device__ __forceinline__ bool has(int j) const {
+    return NB > 0 && lane < NSOC;
+  }
+  __device__ __forceinline__ bool ort(int q) const {
+    return q < RO && lane + TEAM * q < NORT;
+  }
+  // the problem row held in slot q, and whether the slot holds one
+  __device__ __forceinline__ int row(int q) const {
+    if (q < RO) return lane + TEAM * q;
+    const int j = (q - RO) / SM_, i = (q - RO) % SM_;
+    return (lane == 0 ? BO0 : BO1) + i;
+  }
+  __device__ __forceinline__ bool valid(int q) const {
+    if (q < RO) return ort(q);
+    const int j = (q - RO) / SM_, i = (q - RO) % SM_;
+    return has(j) && i < (lane == 0 ? BS0 : BS1);
+  }
 
   static __device__ __forceinline__ int li(int i, int j) {
     return i * (i + 1) / 2 + j;
   }
-
-  // ---- SOC helpers (block at row offset O, size S) ----------------------
-  template <int O, int S>
-  static __device__ __forceinline__ T soc_quad(const Vec& x) {
-    T t = T(0);
-#pragma unroll
-    for (int i = 1; i < S; ++i) t += x[O + i] * x[O + i];
-    return x[O] * x[O] - t;
+  // f(std::integral_constant<int, j>) for each block j the lane can hold
+  template <class F>
+  static __device__ __forceinline__ void blocks(F&& f) {
+    if constexpr (NB > 0) f(std::integral_constant<int, 0>());
   }
 
-  template <int O, int S>
-  static __device__ __forceinline__ T soc_tail_norm(const Vec& x) {
-    T t = T(0);
+  // ---- reductions over the team -----------------------------------------
+  template <int N>
+  __device__ __forceinline__ void sum_n(T (&v)[N]) const {
 #pragma unroll
-    for (int i = 1; i < S; ++i) t += x[O + i] * x[O + i];
-    return dsqrt(t);
+    for (int o = TEAM / 2; o > 0; o >>= 1)
+#pragma unroll
+      for (int i = 0; i < N; ++i) v[i] += __shfl_xor_sync(mask, v[i], o, TEAM);
+  }
+  __device__ __forceinline__ T sum(T v) const {
+    T a[1] = {v};
+    sum_n(a);
+    return a[0];
+  }
+  // min / max: a butterfly, then lane 0's result, so that every lane holds
+  // the same bits even where +0 and -0 tie
+  __device__ __forceinline__ T min(T v) const {
+#pragma unroll
+    for (int o = TEAM / 2; o > 0; o >>= 1)
+      v = vmin(v, __shfl_xor_sync(mask, v, o, TEAM));
+    return __shfl_sync(mask, v, 0, TEAM);
+  }
+  __device__ __forceinline__ T max(T v) const {
+#pragma unroll
+    for (int o = TEAM / 2; o > 0; o >>= 1)
+      v = vmax(v, __shfl_xor_sync(mask, v, o, TEAM));
+    return __shfl_sync(mask, v, 0, TEAM);
+  }
+  __device__ __forceinline__ bool all(bool p) const {
+    return __all_sync(mask, p) != 0;
   }
 
-  template <int O, int S>
-  static __device__ __forceinline__ void soc_nt(const Vec& s, const Vec& z,
-                                                T& eta, T& ieta, T& iw,
-                                                T (&wb)[S]) {
-    const T js = vmax(soc_quad<O, S>(s), tiny());
-    const T jz = vmax(soc_quad<O, S>(z), tiny());
-    const T rs = T(1) / dsqrt(js), rz = T(1) / dsqrt(jz);
-    T d = T(0);
+  // zero the slots the lane does not fill (a block shorter than SMAX, or no
+  // block): they must stay zero through every operation
+  __device__ __forceinline__ void clean(Rows& o) const {
 #pragma unroll
-    for (int i = 0; i < S; ++i) d += (s[O + i] * rs) * (z[O + i] * rz);
-    const T half_ig = T(1) / (T(2) * dsqrt((T(1) + d) / T(2)));
-    wb[0] = (s[O] * rs + z[O] * rz) * half_ig;
-#pragma unroll
-    for (int i = 1; i < S; ++i) wb[i] = (s[O + i] * rs - z[O + i] * rz) * half_ig;
-    eta = dpow(js / jz, T(0.25));
-    ieta = T(1) / eta;
-    iw = T(1) / (T(1) + wb[0]);
+    for (int q = RO; q < RS; ++q)
+      if (!valid(q)) o[q] = T(0);
   }
 
-  template <bool INV, int O, int S>
-  static __device__ __forceinline__ void soc_apply(T eta, T ieta, T iw,
-                                                   const T (&wb)[S],
-                                                   const Vec& v, Vec& o) {
-    T w1v1 = T(0);
+  // ---- composite-cone operations ----------------------------------------
+  __device__ __forceinline__ void nt(const Rows& s, const Rows& z,
+                                     Scaling& W) const {
 #pragma unroll
-    for (int i = 1; i < S; ++i) w1v1 += wb[i] * v[O + i];
-    const T sg = INV ? T(-1) : T(1);
-    const T sc = INV ? ieta : eta;
-    const T coef = sg * v[O] + w1v1 * iw;
-    const T head = wb[0] * v[O] + sg * w1v1;
-#pragma unroll
-    for (int i = 1; i < S; ++i) o[O + i] = (v[O + i] + coef * wb[i]) * sc;
-    o[O] = head * sc;
-  }
-
-  // ---- composite-cone operations -----------------------------------------
-  static __device__ __forceinline__ void nt(const Vec& s, const Vec& z,
-                                            Scaling& W) {
-#pragma unroll
-    for (int i = 0; i < NORT; ++i) {
-      W.w[i] = dsqrt(s[i] / z[i]);
-      W.wi[i] = T(1) / W.w[i];
+    for (int k = 0; k < RO; ++k) {
+      W.w[k] = ort(k) ? dsqrt(s[k] / z[k]) : T(1);
+      W.wi[k] = T(1) / W.w[k];
     }
-    if constexpr (S1 > 0) soc_nt<O1, S1>(s, z, W.eta1, W.ieta1, W.iw1, W.wb1);
-    if constexpr (S2 > 0) soc_nt<O2, S2>(s, z, W.eta2, W.ieta2, W.iw2, W.wb2);
+    blocks([&](auto J) {
+      constexpr int j = decltype(J)::value;
+      soc_nt<SMAX, boff(j)>(s, z, W.k[j]);
+    });
   }
 
   // o = W v (INV = false) or W^{-1} v (INV = true); o may not alias v
   template <bool INV>
-  static __device__ __forceinline__ void wapply(const Scaling& W,
-                                                const Vec& v, Vec& o) {
+  __device__ __forceinline__ void wapply(const Scaling& W, const Rows& v,
+                                         Rows& o) const {
 #pragma unroll
-    for (int i = 0; i < NORT; ++i) o[i] = v[i] * (INV ? W.wi[i] : W.w[i]);
-    if constexpr (S1 > 0)
-      soc_apply<INV, O1, S1>(W.eta1, W.ieta1, W.iw1, W.wb1, v, o);
-    if constexpr (S2 > 0)
-      soc_apply<INV, O2, S2>(W.eta2, W.ieta2, W.iw2, W.wb2, v, o);
+    for (int k = 0; k < RO; ++k)
+      o[k] = ort(k) ? v[k] * (INV ? W.wi[k] : W.w[k]) : T(0);
+    blocks([&](auto J) {
+      constexpr int j = decltype(J)::value;
+      soc_apply<INV, SMAX, boff(j)>(W.k[j], v, o);
+    });
+    clean(o);
   }
 
-  template <int O, int S>
-  static __device__ __forceinline__ void soc_prod(const Vec& u, const Vec& v,
-                                                  Vec& o) {
-    T head = T(0);
+  __device__ __forceinline__ void prod(const Rows& u, const Rows& v,
+                                       Rows& o) const {
 #pragma unroll
-    for (int i = 0; i < S; ++i) head += u[O + i] * v[O + i];
-#pragma unroll
-    for (int i = 1; i < S; ++i) o[O + i] = u[O] * v[O + i] + v[O] * u[O + i];
-    o[O] = head;
+    for (int k = 0; k < RO; ++k) o[k] = ort(k) ? u[k] * v[k] : T(0);
+    blocks([&](auto J) { soc_prod<SMAX, boff(decltype(J)::value)>(u, v, o); });
+    clean(o);
   }
 
-  static __device__ __forceinline__ void prod(const Vec& u, const Vec& v,
-                                              Vec& o) {
+  __device__ __forceinline__ void inv_pre(const Rows& lam, InvPre& P) const {
 #pragma unroll
-    for (int i = 0; i < NORT; ++i) o[i] = u[i] * v[i];
-    if constexpr (S1 > 0) soc_prod<O1, S1>(u, v, o);
-    if constexpr (S2 > 0) soc_prod<O2, S2>(u, v, o);
+    for (int k = 0; k < RO; ++k) P.ol[k] = ort(k) ? T(1) / lam[k] : T(0);
+    blocks([&](auto J) {
+      constexpr int j = decltype(J)::value;
+      soc_inv_pre<SMAX, boff(j)>(lam, P.k[j]);
+    });
   }
 
-  // reciprocals of the inverse Jordan product that depend on lam only
-  struct InvPre {
-    T ol[NO_];
-    T irho1, iu1, rho1;
-    T irho2, iu2, rho2;
-  };
-
-  template <int O, int S>
-  static __device__ __forceinline__ void soc_inv_pre(const Vec& u, T& irho,
-                                                     T& iu, T& rho) {
-    rho = soc_quad<O, S>(u);
-    irho = T(1) / rho;
-    iu = T(1) / u[O];
+  __device__ __forceinline__ void inv_prod(const Rows& lam, const InvPre& P,
+                                           const Rows& v, Rows& o) const {
+#pragma unroll
+    for (int k = 0; k < RO; ++k) o[k] = ort(k) ? v[k] * P.ol[k] : T(0);
+    blocks([&](auto J) {
+      constexpr int j = decltype(J)::value;
+      soc_inv<SMAX, boff(j)>(lam, P.k[j], v, o);
+    });
+    clean(o);
   }
 
-  static __device__ __forceinline__ void inv_pre(const Vec& lam, InvPre& P) {
-#pragma unroll
-    for (int i = 0; i < NORT; ++i) P.ol[i] = T(1) / lam[i];
-    if constexpr (S1 > 0) soc_inv_pre<O1, S1>(lam, P.irho1, P.iu1, P.rho1);
-    if constexpr (S2 > 0) soc_inv_pre<O2, S2>(lam, P.irho2, P.iu2, P.rho2);
-  }
-
-  // o with u o o = w (SOC block), u the cached lam
-  template <int O, int S>
-  static __device__ __forceinline__ void soc_inv(const Vec& u, const Vec& w,
-                                                 T irho, T iu, T rho, Vec& o) {
-    T nu = T(0);
-#pragma unroll
-    for (int i = 1; i < S; ++i) nu += u[O + i] * w[O + i];
-    const T a = nu * iu - w[O];
-    const T b = rho * iu;
-    const T head = u[O] * w[O] - nu;
-#pragma unroll
-    for (int i = 1; i < S; ++i) o[O + i] = (a * u[O + i] + b * w[O + i]) * irho;
-    o[O] = head * irho;
-  }
-
-  static __device__ __forceinline__ void inv_prod(const Vec& lam,
-                                                  const InvPre& P,
-                                                  const Vec& v, Vec& o) {
-#pragma unroll
-    for (int i = 0; i < NORT; ++i) o[i] = v[i] * P.ol[i];
-    if constexpr (S1 > 0) soc_inv<O1, S1>(lam, v, P.irho1, P.iu1, P.rho1, o);
-    if constexpr (S2 > 0) soc_inv<O2, S2>(lam, v, P.irho2, P.iu2, P.rho2, o);
-  }
-
-  static __device__ __forceinline__ T dot(const Vec& u, const Vec& v) {
+  // sum over rows of u * v (unfilled slots hold zeros)
+  __device__ __forceinline__ T dot(const Rows& u, const Rows& v) const {
     T t = T(0);
 #pragma unroll
-    for (int i = 0; i < NR; ++i) t += u[i] * v[i];
-    return t;
+    for (int q = 0; q < RS; ++q) t += u[q] * v[q];
+    return sum(t);
   }
 
-  // largest step in [0, 1] keeping y + a d in the SOC block
-  template <int O, int S>
-  static __device__ __forceinline__ T soc_ls(const Vec& y, const Vec& d) {
-    const T nu = vmax(soc_quad<O, S>(y), tiny());
-    const T sq = dsqrt(nu);
-    const T isq = T(1) / sq, inu = T(1) / nu;
-    T zeta = y[O] * d[O];
-#pragma unroll
-    for (int i = 1; i < S; ++i) zeta -= y[O + i] * d[O + i];
-    const T rho0 = zeta * inu;
-    const T coef = (zeta * isq + d[O]) / (y[O] * isq + T(1));
-    T rn = T(0);
-#pragma unroll
-    for (int i = 1; i < S; ++i) {
-      const T r = d[O + i] * isq - coef * y[O + i] * inu;
-      rn += r * r;
-    }
-    rn = dsqrt(rn);
-    const T lim = T(1) / vmax(rn - rho0, tiny());
-    return rn > rho0 ? vmin(T(1), lim) : T(1);
-  }
-
-  static __device__ __forceinline__ T linesearch(const Vec& y, const Vec& d) {
+  // largest step in [0, 1] keeping y + a d in the cone
+  __device__ __forceinline__ T linesearch(const Rows& y, const Rows& d) const {
     T a = T(1);
 #pragma unroll
-    for (int i = 0; i < NORT; ++i)
-      if (d[i] < T(0)) a = vmin(a, -y[i] / d[i]);
-    if constexpr (S1 > 0) a = vmin(a, soc_ls<O1, S1>(y, d));
-    if constexpr (S2 > 0) a = vmin(a, soc_ls<O2, S2>(y, d));
-    return a;
+    for (int k = 0; k < RO; ++k)
+      if (ort(k) && d[k] < T(0)) a = vmin(a, -y[k] / d[k]);
+    blocks([&](auto J) {
+      constexpr int j = decltype(J)::value;
+      if (has(j)) a = vmin(a, soc_ls<SMAX, boff(j)>(y, d));
+    });
+    return min(a);
+  }
+
+  __device__ __forceinline__ void add_e(Rows& r, T m) const {
+#pragma unroll
+    for (int k = 0; k < RO; ++k)
+      if (ort(k)) r[k] += m;
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+      if (has(j)) r[boff(j)] += m;
   }
 
   // shift r along the cone identity until strictly feasible
-  static __device__ __forceinline__ void bring2cone(Vec& r) {
+  __device__ __forceinline__ void bring2cone(Rows& r) const {
     T a = -INFINITY;
 #pragma unroll
-    for (int i = 0; i < NORT; ++i) a = vmax(a, -r[i]);
-    if constexpr (S1 > 0) a = vmax(a, -(r[O1] - soc_tail_norm<O1, S1>(r)));
-    if constexpr (S2 > 0) a = vmax(a, -(r[O2] - soc_tail_norm<O2, S2>(r)));
-    if (!(a < T(0))) {
-      const T sh = T(1) + a;
-#pragma unroll
-      for (int i = 0; i < NORT; ++i) r[i] += sh;
-      if constexpr (S1 > 0) r[O1] += sh;
-      if constexpr (S2 > 0) r[O2] += sh;
-    }
-  }
-
-  static __device__ __forceinline__ void add_e(Vec& r, T m) {
-#pragma unroll
-    for (int i = 0; i < NORT; ++i) r[i] += m;
-    if constexpr (S1 > 0) r[O1] += m;
-    if constexpr (S2 > 0) r[O2] += m;
+    for (int k = 0; k < RO; ++k)
+      if (ort(k)) a = vmax(a, -r[k]);
+    blocks([&](auto J) {
+      constexpr int j = decltype(J)::value;
+      if (has(j))
+        a = vmax(a, -(r[boff(j)] - soc_tail_norm<SMAX, boff(j)>(r)));
+    });
+    a = max(a);
+    if (!(a < T(0))) add_e(r, T(1) + a);
   }
 
   // ---- dense algebra on the (nr x nv) columns ---------------------------
-  static __device__ __forceinline__ void matvec(const Vec (&g)[NV],
-                                                const Col& x, Vec& o) {
+  __device__ __forceinline__ void matvec(const Rows (&g)[NV], const Col& x,
+                                         Rows& o) const {
 #pragma unroll
-    for (int r = 0; r < NR; ++r) {
+    for (int q = 0; q < RS; ++q) {
       T t = T(0);
 #pragma unroll
-      for (int v = 0; v < NV; ++v) t += g[v][r] * x[v];
-      o[r] = t;
+      for (int v = 0; v < NV; ++v) t += g[v][q] * x[v];
+      o[q] = t;
     }
   }
 
-  static __device__ __forceinline__ void rmatvec(const Vec (&g)[NV],
-                                                 const Vec& z, Col& o) {
+  __device__ __forceinline__ void rmatvec(const Rows (&g)[NV], const Rows& z,
+                                          Col& o) const {
 #pragma unroll
-    for (int v = 0; v < NV; ++v) o[v] = dot(g[v], z);
+    for (int v = 0; v < NV; ++v) {
+      T t = T(0);
+#pragma unroll
+      for (int q = 0; q < RS; ++q) t += g[v][q] * z[q];
+      o[v] = t;
+    }
+    sum_n(o);
   }
-
   // L L' = A'A + jitter * mean(diag) I; also the reciprocal diagonal
-  static __device__ __forceinline__ void gram_chol(const Vec (&a)[NV],
-                                                   T jitter, T (&L)[NL],
-                                                   Col& rd) {
+  __device__ __forceinline__ void gram_chol(const Rows (&a)[NV], T jitter,
+                                            T (&L)[NL], Col& rd) const {
 #pragma unroll
     for (int i = 0; i < NV; ++i)
 #pragma unroll
-      for (int j = 0; j <= i; ++j) L[li(i, j)] = dot(a[i], a[j]);
+      for (int j = 0; j <= i; ++j) {
+        T t = T(0);
+#pragma unroll
+        for (int q = 0; q < RS; ++q) t += a[i][q] * a[j][q];
+        L[li(i, j)] = t;
+      }
+    sum_n(L);
     if (jitter != T(0)) {
       T tr = T(0);
 #pragma unroll
@@ -364,199 +502,218 @@ struct Pdip {
   }
 
   // one Newton solve of the scaled KKT system for right-hand side lam_ds
-  static __device__ __forceinline__ void newton(
-      const Vec (&gt)[NV], const T (&L)[NL], const Col& rd,
-      const Scaling& W, const Col& rx, const Vec& rz, const Vec& lam_ds,
-      Col& dx, Vec& ds, Vec& dz) {
-    Vec t, bz;
+  __device__ __forceinline__ void newton(
+      const Rows (&gt)[NV], const T (&L)[NL], const Col& rd, const Scaling& W,
+      const Col& rx, const Rows& rz, const Rows& lam_ds, Col& dx, Rows& ds,
+      Rows& dz) const {
+    Rows t, bz;
     wapply<false>(W, lam_ds, t);
 #pragma unroll
-    for (int r = 0; r < NR; ++r) t[r] = -rz[r] - t[r];
+    for (int q = 0; q < RS; ++q) t[q] = -rz[q] - t[q];
     wapply<true>(W, t, bz);
     Col bv;
+    rmatvec(gt, bz, bv);
 #pragma unroll
-    for (int v = 0; v < NV; ++v) bv[v] = -rx[v] + dot(gt[v], bz);
+    for (int v = 0; v < NV; ++v) bv[v] = -rx[v] + bv[v];
     chol_solve(L, rd, bv, dx);
     matvec(gt, dx, t);
 #pragma unroll
-    for (int r = 0; r < NR; ++r) t[r] -= bz[r];
+    for (int q = 0; q < RS; ++q) t[q] -= bz[q];
     wapply<true>(W, t, dz);
     wapply<false>(W, dz, t);
 #pragma unroll
-    for (int r = 0; r < NR; ++r) t[r] = lam_ds[r] - t[r];
+    for (int q = 0; q < RS; ++q) t[q] = lam_ds[q] - t[q];
     wapply<false>(W, t, ds);
   }
 };
 
-template <typename T, int NV, int NORT, int S1, int S2, bool WARM, bool SKIP>
-__global__ void __launch_bounds__(128)
-pdip_kernel(const T* __restrict__ Gs, const T* __restrict__ hs,
-            const T* __restrict__ cs, const T* __restrict__ xw,
+template <typename T, int NV, int NORT, int S1, int S2, int TEAM, bool WARM,
+          bool SKIP>
+__global__ void __launch_bounds__(kThreads)
+pdip_kernel(const T* __restrict__ Gg, const T* __restrict__ hg,
+            const T* __restrict__ cg, const T* __restrict__ xw,
             const T* __restrict__ sw, const T* __restrict__ zw,
             const bool* __restrict__ skip, T* __restrict__ xo,
             T* __restrict__ so, T* __restrict__ zo, int* __restrict__ it_o,
             bool* __restrict__ conv_o, int B, T tol, T jitter, T margin,
             int max_iters) {
-  typedef Pdip<T, NV, NORT, S1, S2> P;
-  constexpr int NR = P::NR;
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const size_t sB = (size_t)B;
+  typedef Team<T, NV, NORT, S1, S2, TEAM> P;
+  constexpr int NR = P::NR, RS = P::RS;
+  const int b = (blockIdx.x * kThreads + threadIdx.x) / TEAM;
+  if (b >= B) return;  // the whole team leaves together
+  P tm;
+  tm.lane = threadIdx.x % TEAM;
+  const int wl = threadIdx.x % 32;
+  tm.mask = TEAM == 32 ? 0xffffffffu
+                       : ((1u << (TEAM % 32)) - 1u) << (wl & ~(TEAM - 1));
+  const size_t bv = (size_t)b * NV, br = (size_t)b * NR;
+  // a skipped problem returns its warm-initialised iterate: it reads only
+  // the warm x, s and z, not G, h or c (the flag is the same on every lane)
+  const bool skipped = SKIP && skip[b];
 
-  typename P::Vec g[NV], h;
+  typename P::Rows g[NV], h, s, z;
   typename P::Col c, x;
-  typename P::Vec s, z;
 #pragma unroll
-  for (int v = 0; v < NV; ++v)
+  for (int q = 0; q < RS; ++q) {
+    const bool ok = !skipped && tm.valid(q);
+    const size_t r = br + (ok ? tm.row(q) : 0);
 #pragma unroll
-    for (int r = 0; r < NR; ++r) g[v][r] = Gs[(v * NR + r) * sB + b];
+    for (int v = 0; v < NV; ++v) g[v][q] = ok ? Gg[r * NV + v] : T(0);
+    h[q] = ok ? hg[r] : T(0);
+  }
 #pragma unroll
-  for (int r = 0; r < NR; ++r) h[r] = hs[r * sB + b];
-#pragma unroll
-  for (int v = 0; v < NV; ++v) c[v] = cs[v * sB + b];
+  for (int v = 0; v < NV; ++v) c[v] = skipped ? T(0) : cg[bv + v];
 
   if (WARM) {
 #pragma unroll
-    for (int v = 0; v < NV; ++v) x[v] = xw[v * sB + b];
+    for (int v = 0; v < NV; ++v) x[v] = xw[bv + v];
 #pragma unroll
-    for (int r = 0; r < NR; ++r) {
-      s[r] = sw[r * sB + b];
-      z[r] = zw[r * sB + b];
+    for (int q = 0; q < RS; ++q) {
+      const bool ok = tm.valid(q);
+      const size_t r = br + (ok ? tm.row(q) : 0);
+      s[q] = ok ? sw[r] : T(0);
+      z[q] = ok ? zw[r] : T(0);
     }
-    P::add_e(s, margin);
-    P::add_e(z, margin);
-    P::bring2cone(s);
-    P::bring2cone(z);
+    tm.add_e(s, margin);
+    tm.add_e(z, margin);
+    tm.bring2cone(s);
+    tm.bring2cone(z);
   } else {
     // least-squares start: x = (G'G)^{-1} G'h, s = G x - h, z = G (G'G)^{-1}(-c)
     T L[P::NL];
     typename P::Col rd, t, xd;
-    P::gram_chol(g, jitter, L, rd);
-    P::rmatvec(g, h, t);
+    tm.gram_chol(g, jitter, L, rd);
+    tm.rmatvec(g, h, t);
     P::chol_solve(L, rd, t, x);
-    P::matvec(g, x, s);
+    tm.matvec(g, x, s);
 #pragma unroll
-    for (int r = 0; r < NR; ++r) s[r] -= h[r];
-    P::bring2cone(s);
+    for (int q = 0; q < RS; ++q) s[q] -= h[q];
+    tm.bring2cone(s);
 #pragma unroll
     for (int v = 0; v < NV; ++v) t[v] = -c[v];
     P::chol_solve(L, rd, t, xd);
-    P::matvec(g, xd, z);
-    P::bring2cone(z);
+    tm.matvec(g, xd, z);
+    tm.bring2cone(z);
   }
 
   int iters = 0;
-  bool done = SKIP ? skip[b] : false;
+  bool done = skipped;
   const T inv_deg = T(1) / T(P::DEG);
   for (int it = 0; it < max_iters && !done; ++it) {
     // done test on the entry iterate, before the step
-    const T mu = P::dot(s, z) * inv_deg;
+    const T sz = tm.dot(s, z);
+    const T mu = sz * inv_deg;
     if (!dfinite(mu) || mu < tol) break;
 
     typename P::Scaling W;
-    P::nt(s, z, W);
-    typename P::Vec lam, lamlam, rz, t;
-    P::template wapply<false>(W, z, lam);
-    P::prod(lam, lam, lamlam);
+    tm.nt(s, z, W);
+    typename P::Rows lam, lamlam, rz, t;
+    tm.template wapply<false>(W, z, lam);
+    tm.prod(lam, lam, lamlam);
     typename P::Col rx;
-    P::rmatvec(g, z, rx);
+    tm.rmatvec(g, z, rx);
 #pragma unroll
     for (int v = 0; v < NV; ++v) rx[v] += c[v];
-    P::matvec(g, x, rz);
+    tm.matvec(g, x, rz);
 #pragma unroll
-    for (int r = 0; r < NR; ++r) rz[r] += s[r] - h[r];
+    for (int q = 0; q < RS; ++q) rz[q] += s[q] - h[q];
 
-    typename P::Vec gt[NV];
+    typename P::Rows gt[NV];
 #pragma unroll
-    for (int v = 0; v < NV; ++v) P::template wapply<true>(W, g[v], gt[v]);
+    for (int v = 0; v < NV; ++v) tm.template wapply<true>(W, g[v], gt[v]);
     T L[P::NL];
     typename P::Col rd;
-    P::gram_chol(gt, jitter, L, rd);
+    tm.gram_chol(gt, jitter, L, rd);
 
     typename P::InvPre ip;
-    P::inv_pre(lam, ip);
+    tm.inv_pre(lam, ip);
 
     // affine (predictor) step
-    typename P::Vec lam_ds, ds_a, dz_a;
+    typename P::Rows lam_ds, ds_a, dz_a;
     typename P::Col dx;
 #pragma unroll
-    for (int r = 0; r < NR; ++r) t[r] = -lamlam[r];
-    P::inv_prod(lam, ip, t, lam_ds);
-    P::newton(gt, L, rd, W, rx, rz, lam_ds, dx, ds_a, dz_a);
-    const T a_aff = vmin(P::linesearch(s, ds_a), P::linesearch(z, dz_a));
+    for (int q = 0; q < RS; ++q) t[q] = -lamlam[q];
+    tm.inv_prod(lam, ip, t, lam_ds);
+    tm.newton(gt, L, rd, W, rx, rz, lam_ds, dx, ds_a, dz_a);
+    const T a_aff = vmin(tm.linesearch(s, ds_a), tm.linesearch(z, dz_a));
     T num = T(0);
 #pragma unroll
-    for (int r = 0; r < NR; ++r)
-      num += (s[r] + a_aff * ds_a[r]) * (z[r] + a_aff * dz_a[r]);
-    const T rho = num / P::dot(s, z);
+    for (int q = 0; q < RS; ++q)
+      num += (s[q] + a_aff * ds_a[q]) * (z[q] + a_aff * dz_a[q]);
+    const T rho = tm.sum(num) / sz;
     // clip(rho, 0, 1)^3 with NaN passed through
     const T rc = rho < T(0) ? T(0) : (rho > T(1) ? T(1) : rho);
     const T sm = rc * rc * rc * mu;
 
     // centering + corrector step
-    typename P::Vec u, v2;
-    P::template wapply<true>(W, ds_a, u);
-    P::template wapply<false>(W, dz_a, v2);
-    P::prod(u, v2, t);
+    typename P::Rows u, v2;
+    tm.template wapply<true>(W, ds_a, u);
+    tm.template wapply<false>(W, dz_a, v2);
+    tm.prod(u, v2, t);
 #pragma unroll
-    for (int r = 0; r < NR; ++r) t[r] = -lamlam[r] - t[r];
-    P::add_e(t, sm);
-    P::inv_prod(lam, ip, t, lam_ds);
-    typename P::Vec ds, dz;
-    P::newton(gt, L, rd, W, rx, rz, lam_ds, dx, ds, dz);
-    const T a = vmin(T(1), T(0.99) * vmin(P::linesearch(s, ds),
-                                          P::linesearch(z, dz)));
+    for (int q = 0; q < RS; ++q) t[q] = -lamlam[q] - t[q];
+    tm.add_e(t, sm);
+    tm.inv_prod(lam, ip, t, lam_ds);
+    typename P::Rows ds, dz;
+    tm.newton(gt, L, rd, W, rx, rz, lam_ds, dx, ds, dz);
+    const T a = vmin(T(1), T(0.99) * vmin(tm.linesearch(s, ds),
+                                          tm.linesearch(z, dz)));
 
     // apply only a finite candidate; otherwise freeze for good
     bool good = true;
     typename P::Col xn;
-    typename P::Vec sn, zn;
+    typename P::Rows sn, zn;
 #pragma unroll
     for (int v = 0; v < NV; ++v) {
       xn[v] = x[v] + a * dx[v];
       good = good && dfinite(xn[v]);
     }
 #pragma unroll
-    for (int r = 0; r < NR; ++r) {
-      sn[r] = s[r] + a * ds[r];
-      zn[r] = z[r] + a * dz[r];
-      good = good && dfinite(sn[r]) && dfinite(zn[r]);
+    for (int q = 0; q < RS; ++q) {
+      sn[q] = s[q] + a * ds[q];
+      zn[q] = z[q] + a * dz[q];
+      good = good && dfinite(sn[q]) && dfinite(zn[q]);
     }
-    if (!good) break;
+    if (!tm.all(good)) break;
 #pragma unroll
     for (int v = 0; v < NV; ++v) x[v] = xn[v];
 #pragma unroll
-    for (int r = 0; r < NR; ++r) {
-      s[r] = sn[r];
-      z[r] = zn[r];
+    for (int q = 0; q < RS; ++q) {
+      s[q] = sn[q];
+      z[q] = zn[q];
     }
     ++iters;
   }
 
-  const T mu_f = P::dot(s, z) * inv_deg;
+  const T mu_f = tm.dot(s, z) * inv_deg;
 #pragma unroll
-  for (int v = 0; v < NV; ++v) xo[v * sB + b] = x[v];
+  for (int v = 0; v < NV; ++v)
+    if (v % TEAM == tm.lane) xo[bv + v] = x[v];
 #pragma unroll
-  for (int r = 0; r < NR; ++r) {
-    so[r * sB + b] = s[r];
-    zo[r * sB + b] = z[r];
+  for (int q = 0; q < RS; ++q)
+    if (tm.valid(q)) {
+      so[br + tm.row(q)] = s[q];
+      zo[br + tm.row(q)] = z[q];
+    }
+  if (tm.lane == 0) {
+    it_o[b] = iters;
+    conv_o[b] = dfinite(mu_f) && mu_f < tol;
   }
-  it_o[b] = iters;
-  conv_o[b] = dfinite(mu_f) && mu_f < tol;
 }
 
 typedef DCOL_T Real;
 constexpr int kNV = DCOL_NV, kNORT = DCOL_NORT, kS1 = DCOL_S1, kS2 = DCOL_S2;
+constexpr int kTeam = DCOL_TEAM;
 
 template <bool WARM, bool SKIP>
 void launch(const void* G, const void* h, const void* c, const void* xw,
             const void* sw, const void* zw, const void* skip, void* x, void* s,
             void* z, void* iters, void* conv, int B, double tol, double jitter,
             double margin, int max_iters, cudaStream_t stream) {
-  const int threads = 128;
-  const int blocks = (B + threads - 1) / threads;
-  pdip_kernel<Real, kNV, kNORT, kS1, kS2, WARM, SKIP>
-      <<<blocks, threads, 0, stream>>>(
+  const long long threads = (long long)B * kTeam;
+  const int blocks = (int)((threads + kThreads - 1) / kThreads);
+  pdip_kernel<Real, kNV, kNORT, kS1, kS2, kTeam, WARM, SKIP>
+      <<<blocks, kThreads, 0, stream>>>(
           (const Real*)G, (const Real*)h, (const Real*)c, (const Real*)xw,
           (const Real*)sw, (const Real*)zw, (const bool*)skip, (Real*)x,
           (Real*)s, (Real*)z, (int*)iters, (bool*)conv, B, (Real)tol,
@@ -577,10 +734,14 @@ int dcol_pdip_layout(int* out) {
   return 0;
 }
 
-// Solve B problems.  Operands are struct-of-arrays: G (nv*nr, B) with row
-// v*nr + r holding G[:, r, v]; h, s, z (nr, B); c, x (nv, B); skip, iters,
-// conv (B).  xw/sw/zw null = cold start; skip null = no skip lanes (skip
-// needs the warm operands).  Returns cudaGetLastError() after the launch.
+// The lanes of the team that solves one problem.
+int dcol_pdip_team() { return kTeam; }
+
+// Solve B problems.  Operands are row-major and contiguous, as the solver's
+// callers hold them: G (B, nr, nv); h, s, z (B, nr); c, x (B, nv); skip,
+// iters, conv (B).  xw/sw/zw null = cold start; skip null = no skip lanes
+// (skip needs the warm operands).  Returns cudaGetLastError() after the
+// launch.
 int dcol_pdip_solve(const void* G, const void* h, const void* c,
                     const void* xw, const void* sw, const void* zw,
                     const void* skip, void* x, void* s, void* z, void* iters,

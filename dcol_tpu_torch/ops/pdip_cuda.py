@@ -4,12 +4,18 @@ Counterpart of ``dcol_tpu/ops/pdip_pallas.py::solve_socp_pallas`` with the
 same (B, ...) convention as :func:`dcol_tpu_torch.ops.pdip.solve_socp`, its
 plain PyTorch version.
 
-The kernel is specialised per (dtype, nv, cone layout).  Each specialisation
-is compiled at first use with ``nvcc`` for ``sm_90a`` into its own shared
-library with a plain C interface (``-D`` defines pick the layout), cached
-under ``dcol_tpu_torch/build/`` keyed by a hash of the source and the flags,
-and bound with ``ctypes`` (:mod:`dcol_tpu_torch.ops.nvcc_build`).  Nothing
-is built at import, so the module imports on machines without ``nvcc``.
+The kernel is specialised per (dtype, nv, cone layout, team size): a team of
+``team_lanes(nr, dtype)`` lanes solves each problem.  Each specialisation is
+compiled at first use with ``nvcc`` for ``sm_90a`` into its own shared
+library with a plain C interface (``-D`` defines pick it), cached under
+``dcol_tpu_torch/build/`` keyed by a hash of the source and the flags, and
+bound with ``ctypes`` (:mod:`dcol_tpu_torch.ops.nvcc_build`).  Nothing is
+built at import, so the module imports on machines without ``nvcc``.
+
+The kernel reads c (B, nv), G (B, nr, nv), h (B, nr) and the warm start in
+the row-major layout its callers hold them in, and writes x, s and z the
+same way: the wrapper copies an operand only if the caller passed a strided
+one.
 
 The wrapper takes CUDA tensors only and raises on anything else: a CPU
 tensor, a dtype or layout it cannot build, a failed build or a launch error.
@@ -18,6 +24,7 @@ It never falls back to the plain version.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import os
 from typing import Optional, Tuple
@@ -31,34 +38,60 @@ from dcol_tpu_torch.ops.pdip import SocpSolution, check_args
 
 SOURCE = os.path.join(nvcc_build.CSRC, "pdip.cu")
 
-# Kernel launches made by solve_socp_cuda (one per call with B > 0).
+# Kernel launches made by solve_socp_cuda (one per call with B > 0), and the
+# same launches by shape: (B, nv, n_ort, s1, s2, start) -> count, where start
+# is "cold", "warm" or "warm+skip".
 launches = 0
+tally: collections.Counter = collections.Counter()
 
 _CTYPE = {torch.float32: "float", torch.float64: "double"}
+
+
+def team_lanes(nr: int, dtype) -> int:
+    """Lanes of the team that solves one problem of ``nr`` rows: 4 in
+    float32, 8 in float64, never more than the power of two at or above
+    ``nr`` and never fewer than 2.  Measured with ``roofline ab``
+    (PERF.md): float32 teams of 2 are 13% faster on the main path's
+    launches, but on the quadrotor's obstacle group (9, 10) one warm
+    problem, repeated in every scenario, then ends just above tol where the
+    plain version converges, and ``chip_smoke.py``'s converged count fails;
+    teams of 4 pass.  A wider float64 team holds fewer orthant rows a lane
+    and spills less."""
+    cap = 4 if dtype == torch.float32 else 8
+    team = 2
+    while team < min(nr, cap):
+        team *= 2
+    return team
 
 
 def _key(dtype, nv: int, lay: ConeLayout) -> Tuple:
     if dtype not in _CTYPE:
         raise TypeError(f"PDIP kernel supports float32/float64, got {dtype}")
-    return ("pdip", dtype, nv, lay.n_ort, lay.s1, lay.s2)
+    return ("pdip", dtype, nv, lay.n_ort, lay.s1, lay.s2,
+            team_lanes(lay.nr, dtype))
 
 
 def build(dtype, nv: int, lay: ConeLayout) -> Build:
-    """Compile (or find in the cache) the library for one specialisation."""
+    """Compile (or find in the cache) the library for one specialisation,
+    with a team of ``team_lanes(lay.nr, dtype)`` lanes."""
     key = _key(dtype, nv, lay)
+    team = key[-1]
     t = _CTYPE[dtype]
     return nvcc_build.build(
-        key, SOURCE, f"pdip_{t}_{nv}_{lay.n_ort}_{lay.s1}_{lay.s2}",
+        key, SOURCE, f"pdip_{t}_{nv}_{lay.n_ort}_{lay.s1}_{lay.s2}_t{team}",
         [f"-DDCOL_T={t}", f"-DDCOL_NV={nv}", f"-DDCOL_NORT={lay.n_ort}",
-         f"-DDCOL_S1={lay.s1}", f"-DDCOL_S2={lay.s2}"])
+         f"-DDCOL_S1={lay.s1}", f"-DDCOL_S2={lay.s2}", f"-DDCOL_TEAM={team}"])
 
 
 def _lib(dtype, nv: int, lay: ConeLayout) -> ctypes.CDLL:
     want = (torch.finfo(dtype).bits // 8, nv, lay.n_ort, lay.s1, lay.s2)
+    team = team_lanes(lay.nr, dtype)
 
     def bind(lib: ctypes.CDLL) -> None:
         lib.dcol_pdip_layout.argtypes = [ctypes.POINTER(ctypes.c_int)]
         lib.dcol_pdip_layout.restype = ctypes.c_int
+        lib.dcol_pdip_team.argtypes = []
+        lib.dcol_pdip_team.restype = ctypes.c_int
         lib.dcol_pdip_solve.argtypes = (
             [ctypes.c_void_p] * 12 + [ctypes.c_int, ctypes.c_double,
                                       ctypes.c_double, ctypes.c_double,
@@ -66,17 +99,22 @@ def _lib(dtype, nv: int, lay: ConeLayout) -> ctypes.CDLL:
         lib.dcol_pdip_solve.restype = ctypes.c_int
         got = (ctypes.c_int * 5)()
         lib.dcol_pdip_layout(got)
-        if tuple(got) != want:
+        if tuple(got) != want or lib.dcol_pdip_team() != team:
             raise RuntimeError(f"library {lib._name} was built for "
-                               f"{tuple(got)}, expected {want}")
+                               f"{tuple(got)}, team {lib.dcol_pdip_team()}; "
+                               f"expected {want}, team {team}")
 
     return nvcc_build.load(build(dtype, nv, lay), bind)
 
 
-def _soa(a: torch.Tensor) -> torch.Tensor:
-    """(B, d) -> (d, B) contiguous: neighbouring threads, neighbouring
-    addresses."""
-    return a.reshape(a.shape[0], -1).t().contiguous()
+def operands(c, G, h, warm=None, skip=None) -> list:
+    """The kernel's inputs in its order (G, h, c, x, s, z, skip), each
+    row-major and contiguous: the caller's own tensor where it already is
+    (no copy), a contiguous copy of a strided one, None where absent."""
+    ops = [G, h, c] + (list(warm) if warm is not None else [None] * 3)
+    ops.append(None if skip is None
+               else skip.to(torch.bool).expand(G.shape[0]))
+    return [None if t is None else t.contiguous() for t in ops]
 
 
 def solve_socp_cuda(c, G, h, lay: ConeLayout, *, tol: float = 1e-6,
@@ -104,32 +142,28 @@ def solve_socp_cuda(c, G, h, lay: ConeLayout, *, tol: float = 1e-6,
     B, nr, nv = G.shape
     lib = _lib(dt, nv, lay)
     dev = G.device
-    x = torch.empty((nv, B), dtype=dt, device=dev)
-    s = torch.empty((nr, B), dtype=dt, device=dev)
-    z = torch.empty((nr, B), dtype=dt, device=dev)
+    x = torch.empty((B, nv), dtype=dt, device=dev)
+    s = torch.empty((B, nr), dtype=dt, device=dev)
+    z = torch.empty((B, nr), dtype=dt, device=dev)
     iters = torch.empty((B,), dtype=torch.int32, device=dev)
     conv = torch.empty((B,), dtype=torch.bool, device=dev)
     if B == 0:
-        return SocpSolution(x.t(), s.t(), z.t(), iters, conv)
-    Gs = G.permute(2, 1, 0).contiguous()  # (nv, nr, B): row v*nr + r
-    hs, cs = _soa(h), _soa(c)
-    ops = [Gs, hs, cs]
-    if warm is not None:
-        ops += [_soa(w) for w in warm]
-    else:
-        ops += [None, None, None]
-    if skip is not None:
-        ops.append(skip.to(torch.bool).expand(B).contiguous())
-    else:
-        ops.append(None)
+        return SocpSolution(x, s, z, iters, conv)
+    # held until the launch is queued: a copy made for a strided operand
+    # must not go back to the allocator before the kernel is on the stream
+    ops = operands(c, G, h, warm, skip)
     ptr = lambda t: None if t is None else t.data_ptr()
     rc = lib.dcol_pdip_solve(
-        *[ptr(t) for t in ops], x.data_ptr(), s.data_ptr(), z.data_ptr(),
-        iters.data_ptr(), conv.data_ptr(), B, float(tol), float(jitter),
-        float(warm_margin), int(max_iters),
+        *[ptr(t) for t in ops], x.data_ptr(),
+        s.data_ptr(), z.data_ptr(), iters.data_ptr(), conv.data_ptr(), B,
+        float(tol), float(jitter), float(warm_margin), int(max_iters),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"PDIP kernel launch failed: cudaError {rc} "
-                           f"(layout nv={nv}, {lay}, B={B})")
+                           f"(layout nv={nv}, {lay}, team "
+                           f"{team_lanes(nr, dt)}, B={B})")
     launches += 1
-    return SocpSolution(x.t(), s.t(), z.t(), iters, conv)
+    start = ("cold" if warm is None else
+             "warm" if skip is None else "warm+skip")
+    tally[(B, nv, lay.n_ort, lay.s1, lay.s2, start)] += 1
+    return SocpSolution(x, s, z, iters, conv)

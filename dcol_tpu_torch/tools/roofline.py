@@ -1,8 +1,9 @@
 """Roofline accounting for the port's PDIP kernel on the card.
 
     python -m dcol_tpu_torch.tools.roofline {analyze,peak,kernel}
+    python -m dcol_tpu_torch.tools.roofline ab PARENT_CHECKOUT
 
-Port of ``tools/roofline.py``.  Three commands:
+Port of ``tools/roofline.py``.  Four commands:
 
 1. ``analyze`` (CPU, no card needed): a FLOP tally of the PDIP solve per
    problem, for every obstacle group of the three systems, taken from the
@@ -17,11 +18,24 @@ Port of ``tools/roofline.py``.  Three commands:
    events, in float32 and float64, at the JAX tool's 65,536 lanes and at a
    full-card grid; beside it the nominal rate SMs x lanes per SM x the
    maximum SM clock.
-3. ``kernel`` (card): the cold grouped PDIP constraint batch of the f32
-   quadrotor at batch 64 (70,400 pair problems, 7 groups), each group's
-   kernel time, its work sum over lanes of (init + iters * per_iter) from
-   the kernel's own iteration counts, and utilization = work / (time x the
-   measured float32 peak).
+3. ``kernel`` (card): the PDIP kernel on the f32 quadrotor's launches of
+   four shapes (``SHAPES``): a, the cold constraint batch at batch 64
+   (70,400 pair problems in 7 group launches); b, the main path's warm
+   polish batch at batch 128; c, its line-search chunk (4 x b, every other
+   problem skipped); d, the main path's cold batch at batch 128.  Per
+   launch: the kernel time; the work, sum over problems of init + iters x
+   per_iter from the kernel's own iteration counts; the bytes read once and
+   written once (``pdip_bytes``, a skipped problem at its own count); the
+   bound,
+   the larger of work at the published peak and bytes at the published
+   memory rate (``bound_seconds``); the share of it; and the share of the
+   measured float32 peak.
+4. ``ab`` (card): the same launches, saved once, through another
+   checkout's kernel (the parent commit's, unpacked) and this one's, in
+   turns parent, this, this, parent, one process each; in each process
+   also the main path, one batch-128 f32 quadrotor ``solve_batch`` with
+   the device time of each of its PDIP launches beside their bound
+   (``main_path_pdip``).
 
 The TPU tool's count of vector-register instructions has no counterpart
 here: it measured the TPU's (8, 128) register layout.
@@ -29,6 +43,8 @@ here: it measured the TPU's (8, 128) register layout.
 
 from __future__ import annotations
 
+import json
+import os
 import subprocess
 import sys
 import time
@@ -123,23 +139,60 @@ def _problems(nv: int, lay, dtype, B: int, seed: int = 0):
     return c, G, h
 
 
-def solve_flops(nv: int, lay, dtype, B: int, iters: int) -> float:
+def solve_flops(nv: int, lay, dtype, B: int, iters: int,
+                warm: bool = False) -> float:
     """Tallied FLOPs of the plain PDIP solve of B problems of layout
     (nv, lay) for exactly ``iters`` iterations (``tol=0`` keeps every
-    member iterating)."""
+    member iterating); ``warm``: from a warm start (a 3-iteration solve of
+    the same problems, not counted)."""
     from dcol_tpu_torch.ops.pdip import solve_socp
 
     c, G, h = _problems(nv, lay, dtype, B)
-    return tally_flops(solve_socp, c, G, h, lay, tol=0.0, max_iters=iters,
-                       jitter=1e-6)
+    kw = dict(tol=0.0, jitter=1e-6)
+    if warm:
+        w = solve_socp(c, G, h, lay, max_iters=3, **kw)
+        kw["warm"] = (w.x, w.s, w.z)
+    return tally_flops(solve_socp, c, G, h, lay, max_iters=iters, **kw)
 
 
-def pdip_work(nv: int, lay, dtype=torch.float32) -> Tuple[float, float]:
+def pdip_work(nv: int, lay, dtype=torch.float32,
+              warm: bool = False) -> Tuple[float, float]:
     """(init_flops, flops_per_iter) of one problem of the plain PDIP solve
-    for layout (nv, lay), from one problem run for 1 and for 2 iterations
-    (the tally is linear in the batch size)."""
-    one, two = (solve_flops(nv, lay, dtype, 1, it) for it in (1, 2))
+    for layout (nv, lay), cold or warm, from one problem run for 1 and for
+    2 iterations (the tally is linear in the batch size).  init_flops
+    includes the final mu; a skipped problem costs init_flops alone."""
+    one, two = (solve_flops(nv, lay, dtype, 1, it, warm) for it in (1, 2))
     return one - (two - one), two - one
+
+
+# Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
+# FLOP/s outside the tensor cores, and HBM3 bytes/s
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+PEAK_BYTES = 3.35e12
+
+
+def pdip_bytes(nv: int, lay, dtype, warm: bool = False,
+               skip: bool = False, skipped: bool = False) -> int:
+    """Bytes one PDIP problem must move: c, G, h (and the warm x, s, z and
+    the skip flag) read once; x, s, z, iters (int32) and converged (bool)
+    written once.  A ``skipped`` problem (of a warm launch with a skip
+    mask) returns its warm-initialised iterate: it reads the flag and the
+    warm x, s, z, not c, G or h."""
+    e = torch.finfo(dtype).bits // 8
+    nr = lay.nr
+    read = (0 if skipped else nv + nr * nv + nr) + (
+        nv + 2 * nr if warm or skipped else 0)
+    return e * (read + nv + 2 * nr) + 4 + 1 + (1 if skip or skipped else 0)
+
+
+def bound_seconds(flops: float, nbytes: float,
+                  dtype=torch.float32) -> Tuple[float, str]:
+    """(seconds, what bounds it): the least time the card takes for
+    ``flops`` operations at the published peak of ``dtype`` and ``nbytes``
+    at the published memory rate, the larger of the two; what bounds it is
+    "operations" or "bytes"."""
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def _systems():
@@ -228,7 +281,7 @@ PEAK_INNER = 200
 PEAK_CALLS = 40
 # the JAX tool's PDIP batch: the f32 quadrotor at 64 scenarios; timed launches
 KERNEL_BATCH = 64
-KERNEL_REPS = 10
+KERNEL_REPS = 20
 
 
 def _require_cuda(device):
@@ -331,70 +384,374 @@ def peak_table(device="cuda", out=print) -> Dict:
 # kernel (card)
 # ---------------------------------------------------------------------------
 
-def kernel_cold(peak_flops: Optional[float] = None, device="cuda",
-                out=print) -> Dict:
-    """Per obstacle group of the f32 quadrotor at KERNEL_BATCH scenarios:
-    the cold kernel time (CUDA events, mean of KERNEL_REPS launches after
-    one warm-up), the work from the kernel's iteration counts, and the
-    utilization against ``peak_flops`` (measured at the full-card grid if
-    not given)."""
-    from dcol_tpu_torch.ops import pdip_cuda
+# The PDIP launches the roofline times, on the f32 quadrotor's constraint
+# batches at the initial rollouts of perturb_scenarios(seed=0,
+# x0_sigma=0.02), one launch per obstacle group:
+#   a: cold, at KERNEL_BATCH scenarios (the JAX tool's batch);
+#   b: the main path's warm polish shape: MAIN_BATCH scenarios, G and h
+#      scaled by 1 + 1e-3, warm-started from the plain cold solution;
+#   c: its line-search chunk: b's problems at LS_CHUNK candidate steps (G
+#      and h scaled by 1 + j 1e-3, j = 1..LS_CHUNK), every other one skipped;
+#   d: the main path's cold launches: b's problems, cold and unscaled.
+SHAPES = {"a": "cold, batch 64", "b": "warm, batch 128",
+          "c": "warm + every other lane skipped, 4 x batch 128",
+          "d": "cold, batch 128"}
+MAIN_BATCH = 128
+LS_CHUNK = 4
+
+
+def kernel_shapes(device) -> Tuple[List[Dict], Dict]:
+    """The launches of shapes a-d (see SHAPES) as dicts of their operands,
+    and the solver options."""
     from dcol_tpu_torch.ops.cones import ConeLayout
+    from dcol_tpu_torch.ops.pdip import solve_socp
     from dcol_tpu_torch.parallel.batch import perturb_scenarios
     from dcol_tpu_torch.solver import altro
     from dcol_tpu_torch.systems import quadrotor
+
+    f32 = torch.float32
+    sys_, params, X0, U0, _ = quadrotor.make_problem(f32, device)
+    scene, opts = sys_.scene, sys_.scene.opts
+    kw = dict(tol=opts.tol, max_iters=opts.max_iters, jitter=opts.jitter)
+    entries = []
+    for shape, n in (("a", KERNEL_BATCH), ("b", MAIN_BATCH)):
+        pb, xb, ub = perturb_scenarios(params, X0, U0, n=n, seed=0,
+                                       x0_sigma=0.02)
+        X = altro.initial_rollout(sys_, pb, xb[:, 0], ub)
+        rs, ps = sys_.robot_pose(X)
+        grouped = scene.assemble_groups(rs, ps, pb["obs_r"][:, None],
+                                        pb["obs_p"][:, None])
+        for (pl, idx), (c, G, h) in zip(scene.groups, grouped):
+            lay = ConeLayout(pl.n_ort, pl.s1, pl.s2)
+            B = c.shape[0] * c.shape[1] * c.shape[2]
+            c, G, h = (a.reshape((B,) + a.shape[3:]).contiguous()
+                       for a in (c, G, h))
+            e = dict(obstacles=list(idx), nv=pl.nv, lay=lay, warm=None,
+                     skip=None)
+            if shape == "a":
+                entries.append(dict(e, shape="a", c=c, G=G, h=h))
+                continue
+            entries.append(dict(e, shape="d", c=c, G=G, h=h))
+            base = solve_socp(c, G, h, lay, **kw)
+            warm = (base.x, base.s, base.z)
+            entries.append(dict(e, shape="b", c=c, G=G * (1 + 1e-3),
+                                h=h * (1 + 1e-3), warm=warm))
+            rep = lambda a: a.repeat((LS_CHUNK,) + (1,) * (a.dim() - 1))
+            scale = (1 + 1e-3 * torch.arange(1, LS_CHUNK + 1, dtype=f32,
+                                             device=device)
+                     ).repeat_interleave(B)
+            entries.append(dict(
+                e, shape="c", c=rep(c), G=rep(G) * scale[:, None, None],
+                h=rep(h) * scale[:, None], warm=tuple(rep(a) for a in warm),
+                skip=torch.arange(LS_CHUNK * B, device=device) % 2 == 0))
+    return entries, kw
+
+
+def time_launch(fn, reps: int = KERNEL_REPS) -> Tuple[float, object]:
+    """Mean device ms of fn() over ``reps`` launches (CUDA events, after
+    one warm-up launch) and the warm-up's result."""
+    out = fn()
+    torch.cuda.synchronize()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps, out
+
+
+_WORK: Dict = {}
+
+
+def start_of(warm, skip) -> str:
+    """How a launch starts its problems: "cold", "warm" or "warm+skip"."""
+    return "cold" if warm is None else "warm" if skip is None else "warm+skip"
+
+
+def account(nv: int, lay, start: str, B: int, ms: float, iters_sum: float,
+            n_skip: int = 0, peak_flops: Optional[float] = None) -> Dict:
+    """Work, bytes, bound and shares of one f32 launch of B problems of
+    layout (nv, lay), ``n_skip`` of them skipped, that took ``ms`` and ran
+    ``iters_sum`` iterations over its problems."""
+    f32 = torch.float32
+    warm, skip = start != "cold", start == "warm+skip"
+    key = (nv, lay, warm)
+    if key not in _WORK:
+        _WORK[key] = pdip_work(nv, lay, f32, warm)
+    init, per_iter = _WORK[key]
+    flops = B * init + per_iter * iters_sum
+    nbytes = ((B - n_skip) * pdip_bytes(nv, lay, f32, warm, skip)
+              + n_skip * pdip_bytes(nv, lay, f32, skipped=True))
+    bound, by = bound_seconds(flops, nbytes, f32)
+    row = {"nv": nv, "layout": [lay.n_ort, lay.s1, lay.s2], "start": start,
+           "B": B, "ms": ms, "mean_iters": iters_sum / B, "skipped": n_skip,
+           "flops": flops, "bytes": nbytes, "bound_ms": 1e3 * bound,
+           "bound_by": by, "of_bound": 1e3 * bound / ms}
+    if peak_flops:
+        row["of_peak"] = flops / (ms * 1e-3 * peak_flops)
+    return row
+
+
+def account_entry(e: Dict, ms: float, iters_sum: float,
+                  peak_flops: Optional[float] = None) -> Dict:
+    """``account`` of one launch of a ``kernel_shapes`` entry."""
+    skip = e["skip"]
+    return dict(account(e["nv"], e["lay"], start_of(e["warm"], skip),
+                        e["c"].shape[0], ms, iters_sum,
+                        0 if skip is None else int(skip.sum()), peak_flops),
+                shape=e["shape"], obstacles=e["obstacles"])
+
+
+def shape_totals(rows: List[Dict]) -> Dict:
+    """Sums over a shape's launches: ms, FLOPs, bytes and bound ms (the sum
+    of the per-launch bounds)."""
+    tot = {k: sum(r[k] for r in rows)
+           for k in ("ms", "flops", "bytes", "bound_ms")}
+    tot["of_bound"] = tot["bound_ms"] / tot["ms"]
+    by = {r["bound_by"] for r in rows}
+    tot["bound_by"] = by.pop() if len(by) == 1 else "mixed"
+    return tot
+
+
+def kernel(peak_flops: Optional[float] = None, device="cuda",
+           out=print) -> Dict:
+    """Each launch of shapes a-d through the PDIP kernel: time, work from
+    the kernel's own iteration counts, bytes, bound and share of it, and
+    share of ``peak_flops`` (the measured float32 FMA peak at the full-card
+    grid if not given)."""
+    from dcol_tpu_torch.ops import pdip_cuda
 
     device = _require_cuda(device)
     if peak_flops is None:
         lanes = grid_sizes(device)["full_card"]
         peak_flops = peak(torch.float32, lanes, device=device)["tflops"] * 1e12
-    f32 = torch.float32
-    sys_, params, X0, U0, _ = quadrotor.make_problem(f32, device)
-    pb, xb, ub = perturb_scenarios(params, X0, U0, n=KERNEL_BATCH, seed=0,
-                                   x0_sigma=0.02)
-    X = altro.initial_rollout(sys_, pb, xb[:, 0], ub)
-    scene, opts = sys_.scene, sys_.scene.opts
-    rs, ps = sys_.robot_pose(X)
-    grouped = scene.assemble_groups(rs, ps, pb["obs_r"][:, None],
-                                    pb["obs_p"][:, None])
-    kw = dict(tol=opts.tol, max_iters=opts.max_iters, jitter=opts.jitter)
-    rows, tot_ms, tot_work = [], 0.0, 0.0
-    for (pl, idx), (c, G, h) in zip(scene.groups, grouped):
-        lay = ConeLayout(pl.n_ort, pl.s1, pl.s2)
-        B = c.shape[0] * c.shape[1] * c.shape[2]
-        c, G, h = (a.reshape((B,) + a.shape[3:]).contiguous()
-                   for a in (c, G, h))
-        sol = pdip_cuda.solve_socp_cuda(c, G, h, lay, **kw)
+    entries, kw = kernel_shapes(device)
+    res = {"peak_flops": peak_flops, "rows": [], "totals": {}}
+    for shape, what in SHAPES.items():
+        rows = []
+        for e in (e for e in entries if e["shape"] == shape):
+            ms, sol = time_launch(lambda: pdip_cuda.solve_socp_cuda(
+                e["c"], e["G"], e["h"], e["lay"], warm=e["warm"],
+                skip=e["skip"], **kw))
+            row = account_entry(e, ms, float(sol.iters.double().sum()),
+                                peak_flops)
+            rows.append(row)
+            out(f"{shape} group {str(e['obstacles']):8s} nv={e['nv']} "
+                f"{e['lay']} B={row['B']}: {ms:.4f} ms, mean iters "
+                f"{row['mean_iters']:.3f}, {row['flops'] / 1e6:.1f} MFLOP, "
+                f"{row['bytes'] / 1e6:.2f} MB, bound "
+                f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}), "
+                f"{100 * row['of_bound']:.2f}% of bound, "
+                f"{100 * row['of_peak']:.2f}% of the measured peak")
+        tot = shape_totals(rows)
+        tot["of_peak"] = tot["flops"] / (tot["ms"] * 1e-3 * peak_flops)
+        res["rows"] += rows
+        res["totals"][shape] = tot
+        out(f"{shape} ({what}), {len(rows)} launches: {tot['ms']:.4f} ms, "
+            f"{tot['flops'] / 1e6:.1f} MFLOP, {tot['bytes'] / 1e6:.2f} MB, "
+            f"bound {tot['bound_ms'] * 1e3:.2f} us ({tot['bound_by']}), "
+            f"{100 * tot['of_bound']:.2f}% of bound, "
+            f"{100 * tot['of_peak']:.2f}% of the measured f32 peak "
+            f"{peak_flops / 1e12:.2f} TFLOP/s")
+    return res
+
+
+# A spin kernel queued before each timed PDIP launch keeps the device busy
+# while the host records the first event and launches the kernel, so the
+# events bracket the kernel and not the host's launch latency (on the main
+# path the device is otherwise idle most of the time).
+SPIN_CYCLES = 200_000  # ~0.1 ms at the H100's 1,980 MHz
+
+
+def main_path_pdip(device="cuda") -> Dict:
+    """One batch-128 f32 quadrotor ``solve_batch`` (the main path, as
+    ``chip_smoke.py`` drives it) with the device time of every PDIP kernel
+    launch taken.  By (start, B): launches, kernel ms, problems, skipped
+    problems, PDIP iterations, and the bound from those counts; their sums;
+    and the solve's converged count, mean ALTRO iterations and wall.  It solves with the
+    ``dcol_tpu_torch`` found first on ``sys.path``, so ``ab`` can run it on
+    another checkout's package."""
+    from dcol_tpu_torch.ops import pdip_cuda
+    from dcol_tpu_torch.parallel.batch import perturb_scenarios, solve_batch
+    from dcol_tpu_torch.systems import base, quadrotor
+
+    device = _require_cuda(device)
+    calls, kernels = [], []
+
+    class Timed:
+        """A kernel library whose launches are bracketed by events."""
+
+        def __init__(self, lib):
+            self.lib = lib
+
+        def __getattr__(self, name):
+            return getattr(self.lib, name)
+
+        def dcol_pdip_solve(self, *args):
+            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            torch.cuda._sleep(SPIN_CYCLES)
+            t0.record()
+            rc = self.lib.dcol_pdip_solve(*args)
+            t1.record()
+            kernels.append((t0, t1))
+            return rc
+
+    def counted_solve(c, G, h, lay, **kw):
+        # the counts the bound needs, left on the device until the end
+        sol = solve(c, G, h, lay, **kw)
+        skip = kw.get("skip")
+        calls.append((start_of(kw.get("warm"), skip), c.shape[0],
+                      c.shape[-1], lay, kernels[-1], sol.iters.sum(),
+                      0 if skip is None else skip.sum()))
+        return sol
+
+    lib, solve = pdip_cuda._lib, base.solve_socp_cuda
+    pdip_cuda._lib = lambda *a: Timed(lib(*a))
+    base.solve_socp_cuda = counted_solve
+    try:
+        sys_, params, X0, U0, cfg = quadrotor.make_problem(torch.float32,
+                                                           device)
+        pb, xb, ub = perturb_scenarios(params, X0, U0, n=MAIN_BATCH, seed=0,
+                                       x0_sigma=0.02)
         torch.cuda.synchronize(device)
-        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        t0.record()
-        for _ in range(KERNEL_REPS):
-            pdip_cuda.solve_socp_cuda(c, G, h, lay, **kw)
-        t1.record()
+        t = time.perf_counter()
+        st = solve_batch(sys_, pb, cfg, xb, ub)
         torch.cuda.synchronize(device)
-        ms = t0.elapsed_time(t1) / KERNEL_REPS
-        init, per_iter = pdip_work(pl.nv, lay, f32)
-        iters = sol.iters.double()
-        work = float(B * init + per_iter * iters.sum())
-        util = work / (ms * 1e-3 * peak_flops)
-        rows.append({"obstacles": list(idx), "nv": pl.nv, "n_ort": lay.n_ort,
-                     "s1": lay.s1, "s2": lay.s2, "B": B, "ms": ms,
-                     "mean_iters": float(iters.mean()), "work_flops": work,
-                     "gflops": work / (ms * 1e-3) / 1e9,
-                     "utilization": util})
-        tot_ms += ms
-        tot_work += work
-        out(f"group {str(list(idx)):8s} nv={pl.nv} {lay} B={B}: "
-            f"{ms:.4f} ms, mean iters {float(iters.mean()):.3f}, work "
-            f"{work / 1e6:.1f} MFLOP, {work / (ms * 1e-3) / 1e9:.1f} "
-            f"GFLOP/s, utilization {util:.5f}")
-    util = tot_work / (tot_ms * 1e-3 * peak_flops)
-    out(f"cold constraint batch ({sum(r['B'] for r in rows):,} pair "
-        f"problems): {tot_ms:.4f} ms in {len(rows)} launches, {tot_work / 1e6:.1f} "
-        f"MFLOP, utilization {util:.5f} of the measured f32 peak "
-        f"{peak_flops / 1e12:.2f} TFLOP/s")
-    return {"groups": rows, "ms": tot_ms, "work_flops": tot_work,
-            "utilization": util, "peak_flops": peak_flops}
+        wall = time.perf_counter() - t
+    finally:
+        pdip_cuda._lib, base.solve_socp_cuda = lib, solve
+    by = {}
+    keys = ("launches", "ms", "bound_ms", "skipped", "problems", "iters")
+    for start, B, nv, lay, (t0, t1), iters, n_skip in calls:
+        row = account(nv, lay, start, B, t0.elapsed_time(t1), float(iters),
+                      int(n_skip))
+        sums = by.setdefault((start, B), dict.fromkeys(keys, 0))
+        for k, v in zip(keys, (1, row["ms"], row["bound_ms"],
+                               row["skipped"], B, float(iters))):
+            sums[k] += v
+    rows = [dict(v, start=k[0], B=k[1]) for k, v in sorted(by.items())]
+    return {"wall_s": wall, "converged": int(st.converged.sum()),
+            "mean_iters": float(st.iter.double().mean()), "by_shape": rows,
+            **{k: sum(r[k] for r in rows) for k in keys}}
+
+
+# Run in a subprocess from the root of a checkout (this one or another
+# commit's): times that checkout's PDIP kernel on the saved launches and on
+# the main path, with this file's helpers, loaded by path so that the
+# package they drive is the checkout's.
+_TIMER = r"""
+import importlib.util, json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+spec = importlib.util.spec_from_file_location("roofline_timer", sys.argv[3])
+timer = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(timer)
+from dcol_tpu_torch.ops import nvcc_build, pdip_cuda
+from dcol_tpu_torch.ops.cones import ConeLayout
+data = torch.load(sys.argv[2])
+dev = torch.device("cuda")
+ents = [dict(e, lay=ConeLayout(*e["lay"])) for e in data["entries"]]
+nvcc_build.run_parallel([
+    (lambda e=e: pdip_cuda.build(torch.float32, e["nv"], e["lay"]))
+    for e in ents])
+rows = []
+for e in ents:
+    a = {k: (None if e[k] is None else
+             tuple(v.to(dev) for v in e[k]) if k == "warm" else
+             e[k].to(dev)) for k in ("c", "G", "h", "warm", "skip")}
+    ms, sol = timer.time_launch(lambda: pdip_cuda.solve_socp_cuda(
+        a["c"], a["G"], a["h"], e["lay"], warm=a["warm"], skip=a["skip"],
+        **data["kw"]))
+    rows.append({"shape": e["shape"], "ms": ms,
+                 "iters_sum": float(sol.iters.double().sum()),
+                 "converged": int(sol.converged.sum())})
+print(json.dumps({"launches": rows, "main": timer.main_path_pdip(dev)}))
+"""
+
+
+def ab(parent: str, device="cuda", out=print) -> Dict:
+    """The PDIP kernel of another checkout (``parent``, e.g. an unpacked
+    ``git archive`` of the parent commit) against this one's, in the order
+    parent, this, this, parent, one process each: on the same saved
+    launches of shapes a-d, then on the main path (``main_path_pdip``)."""
+    from dcol_tpu_torch.ops import nvcc_build
+
+    device = _require_cuda(device)
+    here = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    parent = os.path.abspath(parent)
+    entries, kw = kernel_shapes(device)
+    os.makedirs(nvcc_build.BUILD_DIR, exist_ok=True)
+    path = os.path.join(nvcc_build.BUILD_DIR, "ab_inputs.pt")
+    cpu = lambda v: (None if v is None else tuple(a.cpu() for a in v)
+                     if isinstance(v, tuple) else v.cpu())
+    torch.save({"kw": kw, "entries": [
+        {"shape": e["shape"], "nv": e["nv"],
+         "lay": (e["lay"].n_ort, e["lay"].s1, e["lay"].s2),
+         **{k: cpu(e[k]) for k in ("c", "G", "h", "warm", "skip")}}
+        for e in entries]}, path)
+    runs = []
+    for name, tree in (("parent", parent), ("this", here), ("this", here),
+                       ("parent", parent)):
+        proc = subprocess.run(
+            [sys.executable, "-c", _TIMER, tree, path,
+             os.path.abspath(__file__)], cwd=tree, capture_output=True,
+            text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"timer in {tree} failed:\n{proc.stderr}")
+        runs.append((name, json.loads(proc.stdout.strip().splitlines()[-1])))
+    res = {"runs": runs, "totals": [], "main": []}
+    both = lambda vals, fmt: " / ".join(format(v, fmt) for v in vals)
+    for name in ("parent", "this"):
+        mine = [r for n, r in runs if n == name]
+        for shape, what in SHAPES.items():
+            ents = [e for e in entries if e["shape"] == shape]
+            per_run = [[r for r in run["launches"] if r["shape"] == shape]
+                       for run in mine]
+            accounted = [[account_entry(e, r["ms"], r["iters_sum"])
+                          for e, r in zip(ents, rs)] for rs in per_run]
+            tots = [shape_totals(rows) for rows in accounted]
+            conv = sum(r["converged"] for r in per_run[0])
+            row = {"tree": name, "shape": shape,
+                   "ms": [x["ms"] for x in tots],
+                   "bound_ms": tots[0]["bound_ms"],
+                   "bound_by": tots[0]["bound_by"],
+                   "of_bound": [x["of_bound"] for x in tots],
+                   "launch_ms": [[r["ms"] for r in rows]
+                                 for rows in accounted],
+                   "converged": conv,
+                   "problems": sum(e["c"].shape[0] for e in ents)}
+            res["totals"].append(row)
+            out(f"{name:6s} {shape} ({what}): {both(row['ms'], '.4f')} ms in "
+                f"{len(ents)} launches (two runs), bound "
+                f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}), "
+                f"{both((100 * x for x in row['of_bound']), '.2f')}% of "
+                f"bound; converged {conv}/{row['problems']}")
+        main = [run["main"] for run in mine]
+        res["main"].append({"tree": name, "runs": main})
+        m0 = main[0]
+        out(f"{name:6s} main path, batch-128 solve_batch, {m0['launches']} "
+            f"PDIP launches (two runs): "
+            f"{both((m['ms'] for m in main), '.3f')} ms, bound "
+            f"{m0['bound_ms']:.3f} ms; skipped problems {m0['skipped']:,} "
+            f"of {m0['problems']:,}, the others "
+            f"{m0['iters'] / (m0['problems'] - m0['skipped']):.3f} PDIP "
+            f"iterations on average; converged {m0['converged']}/{MAIN_BATCH}, "
+            f"mean iterations {m0['mean_iters']:.4f}, wall "
+            f"{both((m['wall_s'] for m in main), '.2f')} s")
+        for sh in m0["by_shape"]:
+            key = (sh["start"], sh["B"])
+            got = [x for m in main for x in m["by_shape"]
+                   if (x["start"], x["B"]) == key]
+            out(f"{name:6s}   {sh['start']:9s} B={sh['B']:>7,}: "
+                f"{sh['launches']} launches, "
+                f"{both((x['ms'] for x in got), '.3f')} ms, bound "
+                f"{sh['bound_ms']:.3f} ms; skipped {sh['skipped']:,} of "
+                f"{sh['problems']:,}, the others "
+                f"{sh['iters'] / (sh['problems'] - sh['skipped']):.3f} "
+                f"iterations on average")
+    return res
 
 
 def main(argv=None):
@@ -405,9 +762,18 @@ def main(argv=None):
     if cmd == "peak":
         return peak_table()
     if cmd == "kernel":
-        return kernel_cold()
+        return kernel()
+    if cmd == "ab" and len(argv) > 1:
+        from dcol_tpu_torch.ops import nvcc_build
+
+        res = ab(argv[1])
+        path = os.path.join(nvcc_build.BUILD_DIR, "roofline_ab.json")
+        with open(path, "w") as f:
+            json.dump(res, f, indent=1)
+        print(f"per-launch times: {path}")
+        return res
     raise SystemExit("usage: python -m dcol_tpu_torch.tools.roofline "
-                     "[analyze|peak|kernel]")
+                     "[analyze|peak|kernel|ab PARENT_CHECKOUT]")
 
 
 if __name__ == "__main__":

@@ -182,17 +182,38 @@ def test_cuda_wrapper_refuses_cpu_tensors_without_building():
 
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain_on_card():
-    """Kernel vs plain version on the card (skips without one)."""
+    """Kernel vs plain version on the card (skips without one): cold on the
+    golden alphas, then warm and warm with every third lane skipped from
+    the cold optimum on G, h x 1.001; equal iteration counts (f64), and the
+    skipped lanes bit-identical to the plain version's."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
     c, G, h, jlay, gold = _padded_batch()
     lay = ConeLayout(jlay.n_ort, jlay.s1, jlay.s2)
     dev = torch.device("cuda")
     args = [T(a).to(dev) for a in (c, G, h)]
+    kw = dict(tol=1e-9, max_iters=40)
     n0 = pdip_cuda.launches
-    out = pdip_cuda.solve_socp_cuda(*args, lay, tol=1e-9, max_iters=40)
-    ref = solve_socp(*args, lay, tol=1e-9, max_iters=40)
+    out = pdip_cuda.solve_socp_cuda(*args, lay, **kw)
+    ref = solve_socp(*args, lay, **kw)
     assert pdip_cuda.launches == n0 + 1
     np.testing.assert_allclose(out.x[:, 3].cpu().numpy(), gold, rtol=1e-6,
                                atol=1e-8)
     assert torch.equal(out.iters, ref.iters)
+    warm = (ref.x, ref.s, ref.z)
+    c2, G2, h2 = args[0], args[1] * (1 + 1e-3), args[2] * (1 + 1e-3)
+    skip = torch.arange(c.shape[0], device=dev) % 3 == 1
+    for sk in (None, skip):
+        got = pdip_cuda.solve_socp_cuda(c2, G2, h2, lay, warm=warm, skip=sk,
+                                        **kw)
+        want = solve_socp(c2, G2, h2, lay, warm=warm, skip=sk, **kw)
+        for g, w in zip(got[:3:2], want[:3:2]):
+            np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                       rtol=0, atol=ATOL)
+        assert torch.equal(got.iters, want.iters)
+        assert torch.equal(got.converged, want.converged)
+        if sk is not None:
+            assert int(got.iters[sk].max()) == 0
+            for g, w in zip(got[:3], want[:3]):
+                assert torch.equal(g[sk], w[sk])
+    assert pdip_cuda.launches == n0 + 3

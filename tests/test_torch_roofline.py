@@ -98,6 +98,63 @@ def test_analyze_covers_every_group():
     assert m["dynamics_jacobians"] > 10 * m["initial_rollout"] > 0
 
 
+@pytest.mark.parametrize("case", [
+    (5, (4, 4, 4), torch.float32, False, False, 429),
+    (5, (4, 4, 4), torch.float32, True, True, 546),
+    (5, (4, 4, 4), torch.float64, False, False, 853),
+    (4, (12, 0, 0), torch.float32, True, False, 4 * (92 + 28) + 5),
+    (5, (4, 4, 4), torch.float32, "skipped", True, 4 * (29 + 29) + 6),
+])
+def test_pdip_bytes(case):
+    """Bytes read once and written once per problem: c, G, h (+ warm x, s,
+    z, + the skip flag) in, x, s, z, iters (int32), converged (bool) out; a
+    skipped problem reads the warm x, s, z and its flag, not c, G or h."""
+    nv, lay, dtype, warm, skip, want = case
+    kw = (dict(skipped=True) if warm == "skipped"
+          else dict(warm=warm, skip=skip))
+    assert roofline.pdip_bytes(nv, ConeLayout(*lay), dtype, **kw) == want
+
+
+def test_account_counts_skipped_problems_apart():
+    """A warm launch with a skip mask: its skipped problems move the
+    skipped bytes, the others the warm+skip bytes; the work is init for
+    every problem plus the iterations run."""
+    lay, B, f32 = ConeLayout(4, 4, 4), 10, torch.float32
+    row = roofline.account(5, lay, "warm+skip", B, 1.0, 5.0, n_skip=6)
+    assert row["bytes"] == 4 * 546 + 6 * roofline.pdip_bytes(
+        5, lay, f32, skipped=True) == 4 * 546 + 6 * 238
+    init, per_iter = roofline.pdip_work(5, lay, f32, warm=True)
+    assert row["flops"] == B * init + 5.0 * per_iter
+    assert row["bound_by"] == "bytes" and row["skipped"] == 6
+    e = dict(shape="c", obstacles=[0], nv=5, lay=lay, c=torch.zeros(B, 5),
+             warm=(None,) * 3, skip=torch.arange(B) < 6)
+    assert roofline.account_entry(e, 1.0, 5.0) == dict(
+        row, shape="c", obstacles=[0])
+    assert [roofline.start_of(w, s) for w, s in (
+        (None, None), (e["warm"], None), (e["warm"], e["skip"]))] == [
+        "cold", "warm", "warm+skip"]
+
+
+def test_bound_takes_the_larger_term():
+    f32, f64 = torch.float32, torch.float64
+    assert roofline.bound_seconds(67e12, 1.0, f32) == (1.0, "operations")
+    assert roofline.bound_seconds(1.0, 3.35e12, f32) == (1.0, "bytes")
+    assert roofline.bound_seconds(34e12, 3.35e12 / 2, f64) == (
+        1.0, "operations")
+    t, by = roofline.bound_seconds(2185e6, 25e6, f32)
+    assert by == "operations" and t == pytest.approx(32.6e-6, rel=1e-3)
+
+
+def test_pdip_work_warm_start():
+    """A warm start costs far less than the cold least-squares start and
+    the same per iteration."""
+    lay = ConeLayout(4, 4, 4)
+    cold, warm = (roofline.pdip_work(5, lay, torch.float32, w)
+                  for w in (False, True))
+    assert warm[1] == cold[1] == 3843.0
+    assert cold[0] == 1351.0 and 0 < warm[0] < cold[0] / 4
+
+
 def _probe_input(dtype, L=256):
     rng = np.random.default_rng(1)
     x = np.concatenate([rng.uniform(0.5, 1.0, (8, L)),
@@ -132,7 +189,11 @@ def test_card_paths_refuse_cpu_without_building():
     with pytest.raises(RuntimeError, match="needs CUDA"):
         roofline.peak(device="cpu")
     with pytest.raises(RuntimeError, match="needs CUDA"):
-        roofline.kernel_cold(1e12, device="cpu")
+        roofline.kernel(1e12, device="cpu")
+    with pytest.raises(RuntimeError, match="needs CUDA"):
+        roofline.ab(".", device="cpu")
+    with pytest.raises(RuntimeError, match="needs CUDA"):
+        roofline.main_path_pdip(device="cpu")
     assert not any(k[0] == "fma_peak" for k in nvcc_build._BUILDS)
 
 
