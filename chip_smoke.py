@@ -36,19 +36,37 @@ Phases, in order; any failure ends the run with a nonzero exit:
      f64 solve against its reference trajectory, then the f32 batch of the
      32 perturbed scenarios (at most 80 ALTRO iterations);
   8. MPC: the f64 piano with and without dual warm starts, then the
-     closed-loop quadrotor at 128 scenarios (horizon 40, 10 ticks);
+     closed-loop quadrotor at 128 scenarios (horizon 40, 5 ticks: half
+     of bench_mpc.py's 10, to keep the whole run under ten minutes);
+ 10. distributed + checkpoint: phase 4's 128 scenarios made on the host,
+     through ``distributed.initialize`` (NCCL, world size 1, cuda:0),
+     ``scatter_local`` and ``solve_scattered`` capped at 20 AL iterations,
+     ``checkpoint.save`` and ``load`` back onto the card, resumed to the
+     normal cap through ``altro.iterate``, then ``gather_metrics``; held to
+     phase 4's state (iterations, converged flags, summary, X);
+ 11. blocked and mesh: the f64 piano's 4 scenarios through
+     ``solve_batch_blocked(block=2)`` and ``solve_batch_sharded`` over
+     ``scenario_mesh()``, each against ``solve_batch`` (equal iterations, X
+     to 1e-6); ``block=3`` raises;
+ 12. profile: ``tools/profile_breakdown.py`` at batch 64, its component
+     times and the device busy share of one ALTRO iteration;
+ 13. CLI: ``dcol_tpu_torch.main`` on the piano with ``--verbose --no-viz``
+     on the card by default: converged in 35 iterations;
   9. a JSON line of kernel results, then the last line
      {"ok": true, "device": {...}}.
 
-Each path of phases 4-8 runs with every kernel's launch count set to 0 just
+Each path of phases 4-13 runs with every kernel's launch count set to 0 just
 before it and read just after.  A detailed record goes to
 chiprun_out/chip_smoke.json.
 """
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import re
+import socket
 import subprocess
 import sys
 import time
@@ -63,6 +81,7 @@ PDIP_TPU_KERNEL = "dcol_tpu/ops/pdip_pallas.py:464"
 FMA_TPU_KERNEL = "tools/roofline.py:231"
 F32, F64 = torch.float32, torch.float64
 CONE_F32_MAX_ITERS = 80
+RESUME_CAP = 20   # phase 10: AL iterations before the checkpoint
 # proximity on the card vs on the CPU, f64 at tol 1e-10: x and z
 PROX_RTOL, PROX_ATOL = 1e-8, 1e-8
 
@@ -418,6 +437,7 @@ def phase_quadrotor(run):
     run.record["main"] = {"wall_s": wall, "converged": n_conv,
                           "batch": BATCH, "mean_iters": mean_it,
                           "max_iters": max_it, "max_h": worst}
+    run.main_state = (X0_b, st)  # phase 10 holds its path to this state
 
     # the cheapest end-to-end golden: the f64 piano mover, 35 iterations
     sys_p, params_p, X0_p, U0_p, cfg_p = piano_mover.make_problem(F64, dev)
@@ -708,7 +728,7 @@ def phase_mpc(run):
         f"{it_c:.3f} ({res['cold'][1]:.3f} s)")
     check(it_w < it_c, "dual warm starts did not cut MPC iterations")
 
-    S, n_steps, N, tick_iters = 128, 10, 40, 8
+    S, n_steps, N, tick_iters = 128, 5, 40, 8
     sys_, params, X0, U0, cfg = quadrotor.make_problem(F32, dev, N=N)
     cfg = dataclasses.replace(cfg, max_iters=tick_iters)
     rng = np.random.default_rng(0)
@@ -739,6 +759,156 @@ def phase_mpc(run):
         "quad_mean_iters": mean_it, "quad_max_h_applied": h_max}
 
 
+# -- 10. distributed + checkpoint ----------------------------------------
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_distributed(run):
+    from dcol_tpu_torch.ops import nvcc_build
+    from dcol_tpu_torch.parallel import checkpoint, distributed
+    from dcol_tpu_torch.parallel.batch import perturb_scenarios, summarize
+    from dcol_tpu_torch.solver import altro
+    from dcol_tpu_torch.systems import quadrotor
+
+    X0_ref, ref = run.main_state
+    # the rows made on the host, as a process of a multi-process run holds
+    # its scenarios before it scatters them to its card
+    sys_, params, X0, U0, cfg = quadrotor.make_problem(F32, "cpu")
+    local = perturb_scenarios(params, X0, U0, n=BATCH, seed=0, x0_sigma=0.02)
+    path = os.path.join(nvcc_build.BUILD_DIR, "chip_smoke_state.npz")
+    distributed.initialize(f"localhost:{free_port()}", 1, 0, run.dev)
+    try:
+        mesh = distributed.global_scenario_mesh()
+
+        def go():
+            shard = distributed.scatter_local(mesh, local)
+            capped = distributed.solve_scattered(
+                sys_, mesh, shard, dataclasses.replace(cfg,
+                                                       max_iters=RESUME_CAP))
+            checkpoint.save(path, capped)
+            st = altro.iterate(sys_, shard.data[0], cfg,
+                               checkpoint.load(path, device=run.dev))
+            return shard, capped.iter.cpu(), st, distributed.gather_metrics(st)
+
+        (shard, capped_iters, st, gm), wall = run.path(
+            "distributed + checkpoint", go, ["pdip"])
+    finally:
+        distributed.shutdown()
+    check(shard.data[1].device == run.dev and (shard.lo, shard.hi,
+                                               shard.n_global)
+          == (0, BATCH, BATCH), f"shard {shard.lo}:{shard.hi} of "
+                                f"{shard.n_global} on {shard.data[1].device}")
+    check(torch.equal(shard.data[1], X0_ref), "phase 10's scenarios differ "
+                                              "from phase 4's")
+    check(int(capped_iters.max()) == RESUME_CAP,
+          f"capped solve ran {int(capped_iters.max())} iterations")
+    ref_sum = summarize(ref)
+    n_it = int((st.iter != ref.iter).sum())
+    n_cv = int((st.converged != ref.converged).sum())
+    bitwise = all(torch.equal(a, b) for (_, a), (_, b) in
+                  zip(checkpoint.leaves(st), checkpoint.leaves(ref)))
+    dX = float((st.X - ref.X).abs().max())
+    mb = os.path.getsize(path) / 2**20
+    log(f"[distributed] NCCL world size 1 on {run.dev}: {BATCH} scenarios "
+        f"capped at {RESUME_CAP} iterations, checkpoint of {mb:.1f} MiB, "
+        f"loaded and resumed: {wall:.3f} s wall (phase 4: "
+        f"{run.record['main']['wall_s']:.3f} s); iteration counts differ "
+        f"from phase 4 on {n_it}, converged flags on {n_cv}; max |dX| "
+        f"{dX:.3e}, every leaf bitwise equal: {bitwise}")
+    log(f"[distributed] gather_metrics {gm}; summarize of phase 4 {ref_sum}")
+    check(n_it == 0 and n_cv == 0 and int(st.converged.sum()) == BATCH,
+          "the resumed solve differs from phase 4's per scenario")
+    check(gm == ref_sum, "gather_metrics differs from phase 4's summary")
+    check(bitwise or dX <= 1e-4, f"max |dX| {dX} above 1e-4")
+    run.record["distributed"] = {"wall_s": wall, "bitwise": bitwise,
+                                 "max_dX": dX, "checkpoint_mib": mb,
+                                 "gather_metrics": gm}
+    os.remove(path)
+
+
+# -- 11. blocked and mesh ----------------------------------------------------
+
+def phase_blocked_mesh(run):
+    from dcol_tpu_torch.parallel.batch import (
+        perturb_scenarios, solve_batch, solve_batch_blocked)
+    from dcol_tpu_torch.parallel.mesh import scenario_mesh, solve_batch_sharded
+    from dcol_tpu_torch.systems import piano_mover
+
+    sys_, params, X0, U0, cfg = piano_mover.make_problem(F64, run.dev)
+    pb, xb, ub = perturb_scenarios(params, X0, U0, n=4, seed=5,
+                                   x0_sigma=0.01)
+    ref, _ = run.path("piano solve_batch x4",
+                      lambda: solve_batch(sys_, pb, cfg, xb, ub), ["pdip"])
+    mesh = scenario_mesh()
+    out = {
+        "blocked": run.path(
+            "piano solve_batch_blocked block=2",
+            lambda: solve_batch_blocked(sys_, pb, cfg, xb, ub, block=2),
+            ["pdip"])[0],
+        "sharded": run.path(
+            f"piano solve_batch_sharded over {len(mesh)} device(s)",
+            lambda: solve_batch_sharded(sys_, mesh, pb, cfg, xb, ub),
+            ["pdip"])[0]}
+    check(bool(ref.converged.all()), f"piano x4: converged "
+                                     f"{ref.converged.tolist()}")
+    rec = run.record["blocked_mesh"] = {"iters": ref.iter.tolist()}
+    for name, st in out.items():
+        err = float((st.X - ref.X).abs().max())
+        log(f"[mesh] f64 piano x4, {name}: iters {st.iter.tolist()} against "
+            f"{ref.iter.tolist()}, max |dX| {err:.3e}")
+        check(torch.equal(st.iter, ref.iter) and err <= 1e-6,
+              f"{name} differs from solve_batch")
+        rec[name] = err
+    try:
+        solve_batch_blocked(sys_, pb, cfg, xb, ub, block=3)
+    except ValueError as e:
+        log(f"[mesh] block=3 raises: {e}")
+    else:
+        check(False, "block=3 of a batch of 4 did not raise")
+
+
+# -- 12. profile ---------------------------------------------------------------
+
+def phase_profile(run):
+    from dcol_tpu_torch.tools import profile_breakdown
+
+    res, _ = run.path("profile_breakdown batch 64",
+                      lambda: profile_breakdown.run(64, run.dev, out=log),
+                      ["pdip"])
+    prof = res["full_iteration_profile"]
+    check(all(ms > 0 for ms in res["components"].values()),
+          "a component took no time")
+    check(0.0 < prof["busy_share"] <= 1.0 and prof["top_ops"],
+          f"busy share {prof['busy_share']} from {prof['device_ops']} "
+          "device operations")
+    run.record["profile"] = res
+
+
+# -- 13. CLI -------------------------------------------------------------------
+
+def phase_cli(run):
+    from dcol_tpu_torch import main as cli
+
+    buf = io.StringIO()
+
+    def go():
+        with contextlib.redirect_stdout(buf):
+            cli.main(["--system", "piano_mover", "--verbose", "--no-viz"])
+
+    _, wall = run.path("cli piano --verbose --no-viz", go, ["pdip"])
+    lines = buf.getvalue().splitlines()
+    for ln in lines[:1] + lines[-3:]:
+        log(f"[cli] {ln}")
+    check("Convergence reached in 35 iterations." in lines
+          and "(converged=True, iters=35)" in lines[-1],
+          "the CLI's piano did not converge in 35 iterations")
+    run.record["cli"] = {"wall_s": wall, "last": lines[-1]}
+
+
 def main():
     # -- 1. device -----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -760,7 +930,8 @@ def main():
     run = Run(dev, smi)
     t0 = time.perf_counter()
     for phase in (phase_build, phase_pdip, phase_quadrotor, phase_roofline,
-                  phase_proximity, phase_cone, phase_mpc):
+                  phase_proximity, phase_cone, phase_mpc, phase_distributed,
+                  phase_blocked_mesh, phase_profile, phase_cli):
         t = time.perf_counter()
         phase(run)
         log(f"[phase] {phase.__name__[6:]}: {time.perf_counter() - t:.1f} s")

@@ -27,6 +27,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import os
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -40,9 +41,11 @@ SOURCE = os.path.join(nvcc_build.CSRC, "pdip.cu")
 
 # Kernel launches made by solve_socp_cuda (one per call with B > 0), and the
 # same launches by shape: (B, nv, n_ort, s1, s2, start) -> count, where start
-# is "cold", "warm" or "warm+skip".
+# is "cold", "warm" or "warm+skip".  Counted under a lock: the scenario mesh
+# launches from one host thread per device.
 launches = 0
 tally: collections.Counter = collections.Counter()
+_COUNT_LOCK = threading.Lock()
 
 _CTYPE = {torch.float32: "float", torch.float64: "double"}
 
@@ -162,8 +165,9 @@ def solve_socp_cuda(c, G, h, lay: ConeLayout, *, tol: float = 1e-6,
         raise RuntimeError(f"PDIP kernel launch failed: cudaError {rc} "
                            f"(layout nv={nv}, {lay}, team "
                            f"{team_lanes(nr, dt)}, B={B})")
-    launches += 1
     start = ("cold" if warm is None else
              "warm" if skip is None else "warm+skip")
-    tally[(B, nv, lay.n_ort, lay.s1, lay.s2, start)] += 1
+    with _COUNT_LOCK:
+        launches += 1
+        tally[(B, nv, lay.n_ort, lay.s1, lay.s2, start)] += 1
     return SocpSolution(x, s, z, iters, conv)

@@ -1,7 +1,6 @@
 """Scenario-parallel batching: many perturbed trajectory-optimisation
 problems solved at once along the solver's scenario dim S.  Port of
-``dcol_tpu/parallel/batch.py`` (plus ``summarize`` from
-``dcol_tpu/parallel/mesh.py``).
+``dcol_tpu/parallel/batch.py``.
 
 Scenario noise comes from numpy's ``default_rng(seed)``, drawn in the same
 order as the JAX package, so both packages solve the same scenarios."""
@@ -11,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from dcol_tpu_torch.parallel.mesh import summarize  # noqa: F401 (re-export)
 from dcol_tpu_torch.solver import altro
 
 
@@ -39,27 +39,34 @@ def solve_batch(sys, params_b, cfg: altro.AltroConfig, X0_b, U0_b):
 
 
 def solve_single(sys, params, cfg: altro.AltroConfig, X0, U0):
-    """One solve: a batch of one scenario, returned without the batch
-    dim."""
+    """One solve: a batch of one scenario, returned without the batch dim.
+
+    The JAX package replicates the problem (``replicas=8``) because XLA
+    picks slow layouts for a batch of one on the TPU; eager PyTorch has no
+    such layouts, so the port solves the one scenario alone."""
     params_b = {k: v[None] for k, v in params.items()}
     st = altro.solve(sys, params_b, cfg, X0[None], U0[None])
-    return _index(st, 0)
+    return altro.tree_map(lambda a: a[0], st)
 
 
-def _index(tree, i):
-    if isinstance(tree, tuple):
-        out = [_index(a, i) for a in tree]
-        return type(tree)(*out) if hasattr(tree, "_fields") else tuple(out)
-    return tree[i]
+def solve_batch_blocked(sys, params_b, cfg: altro.AltroConfig, X0_b, U0_b,
+                        *, block: int = 128):
+    """Block-sequential batched solves: blocks of ``block`` scenarios, one
+    :func:`solve_batch` each, concatenated in order.
 
-
-def summarize(batched_state) -> dict:
-    """Aggregate metrics of a solved batch."""
-    st = batched_state
-    return {
-        "n": int(st.converged.shape[0]),
-        "n_converged": int(st.converged.sum()),
-        "n_failed": int(st.failed.sum()),
-        "mean_iters": float(st.iter.double().mean()),
-        "max_convio": float(st.convio.max()),
-    }
+    The lock-step loop runs until its slowest scenario stops, so every
+    scenario of a batch pays for the stragglers' iterations; blocks bound
+    that to one block and keep each launch at the block's width.  Per
+    scenario this is the algorithm of :func:`solve_batch`; bitwise equality
+    is not promised, since a reduction may run in another order at another
+    batch size.  ``block`` must divide the batch (``ValueError``
+    otherwise)."""
+    n = X0_b.shape[0]
+    if n % block:
+        raise ValueError(f"batch {n} not divisible by block {block}")
+    if n == block:
+        return solve_batch(sys, params_b, cfg, X0_b, U0_b)
+    outs = [solve_batch(sys, {k: v[lo:lo + block] for k, v in params_b.items()},
+                        cfg, X0_b[lo:lo + block], U0_b[lo:lo + block])
+            for lo in range(0, n, block)]
+    return altro.tree_map(lambda *a: torch.cat(a), *outs)

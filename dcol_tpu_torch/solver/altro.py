@@ -27,10 +27,9 @@ import dataclasses
 from typing import NamedTuple, Optional
 
 import torch
-from torch.func import jvp
 
 from dcol_tpu_torch.ops import chol
-from dcol_tpu_torch.systems.base import scenario_view
+from dcol_tpu_torch.systems.base import jvp, scenario_view
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,12 +93,22 @@ class AltroState(NamedTuple):
     metrics: Metrics
 
 
+def tree_map(fn, *trees):
+    """``fn`` over the tensors of (named) tuples and dicts of one structure,
+    such as an :class:`AltroState` with its per-group ``warm`` tuple."""
+    a = trees[0]
+    if isinstance(a, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in a}
+    if isinstance(a, tuple):
+        out = [tree_map(fn, *xs) for xs in zip(*trees)]
+        return type(a)(*out) if hasattr(a, "_fields") else tuple(out)
+    return fn(*trees)
+
+
 def _where(pred, a, b):
     """Per-scenario select over tensors / (named) tuples; pred is (S,)."""
-    if isinstance(a, tuple):
-        out = [_where(pred, x, y) for x, y in zip(a, b)]
-        return type(a)(*out) if hasattr(a, "_fields") else tuple(out)
-    return torch.where(pred.reshape(pred.shape + (1,) * (a.dim() - 1)), a, b)
+    return tree_map(lambda x, y: torch.where(
+        pred.reshape(pred.shape + (1,) * (x.dim() - 1)), x, y), a, b)
 
 
 def _mv(A, v):
@@ -476,9 +485,61 @@ def solve(sys, params, cfg: AltroConfig, X0, U0, duals=None,
     their state.  ``duals``/``rho`` warm-start the AL state (see
     :func:`make_initial_state`)."""
     st = make_initial_state(sys, params, cfg, X0, U0, duals=duals, rho=rho)
+    return iterate(sys, params, cfg, st)
+
+
+def iterate(sys, params, cfg: AltroConfig, st: AltroState,
+            callback=None) -> AltroState:
+    """AL iterations from ``st`` while any scenario is active (not
+    converged, not failed, under ``cfg.max_iters``); the others keep their
+    state.  ``callback(itr, st)`` runs after every iteration with the
+    batched state, ``itr`` counting this call's iterations from 0.  The one
+    loop of :func:`solve`, :func:`solve_verbose` and a resume from a
+    checkpoint (:mod:`dcol_tpu_torch.parallel.checkpoint`)."""
+    itr = 0
     while True:
         active = ~(st.converged | st.failed) & (st.iter < cfg.max_iters)
         if not bool(active.any()):
             return st
         st = _where(active, altro_iteration(sys, params, cfg, st,
                                             active=active), st)
+        if callback is not None:
+            callback(itr, st)
+        itr += 1
+
+
+TABLE_HEADER = ("iter     J           dJ        |d|         a        reg"
+                "         rho\n" + "-" * 69)
+
+
+def table_row(i: int, J, dJ, kmax, alpha, reg, rho) -> str:
+    """Row ``i`` (from 1) of the reference's iteration table."""
+    return (f"{i:3d}   {J:10.3e}  {dJ:9.2e}  {kmax:9.2e}  {alpha:6.4f}"
+            f"   {reg:9.2e}   {rho:9.2e}")
+
+
+def solve_verbose(sys, params, cfg: AltroConfig, X0, U0, callback=None,
+                  print_table: bool = True) -> AltroState:
+    """:func:`solve` that prints scenario 0's row of the reference's
+    iteration table (ALTRO.py:437-440) after each of its iterations, at one
+    host sync a row.  ``callback(itr, st)`` runs after every AL iteration
+    with the batched state, e.g. to keep the X/U history the reference
+    plots (ALTRO.py:402-403,419-420).  Stops when every scenario is
+    converged, failed or capped."""
+    def step(itr, st):
+        # scenario 0 ran iteration itr iff its count moved to itr + 1
+        if print_table and int(st.iter[0]) == itr + 1:
+            if itr % 50 == 0:
+                print(TABLE_HEADER)
+            print(table_row(itr + 1, *torch.stack(
+                [st.J, st.delta_J, st.kmax, st.alpha, st.reg, st.rho]
+            )[:, 0].tolist()))
+            if bool(st.converged[0]):
+                print(f"Convergence reached in {itr + 1} iterations.")
+            elif bool(st.failed[0]):
+                print("Solve failed (regularization cap reached).")
+        if callback is not None:
+            callback(itr, st)
+
+    st = make_initial_state(sys, params, cfg, X0, U0)
+    return iterate(sys, params, cfg, st, callback=step)

@@ -19,16 +19,28 @@ raises if it cannot run.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Tuple
 
 import torch
-from torch.func import jvp
+import torch.func
 
 from dcol_tpu_torch.geometry import assembly
 from dcol_tpu_torch.geometry.primitives import Shape
 from dcol_tpu_torch.ops.cones import ConeLayout
 from dcol_tpu_torch.ops.pdip import solve_socp
 from dcol_tpu_torch.ops.pdip_cuda import solve_socp_cuda
+
+
+_JVP_LOCK = threading.Lock()
+
+
+def jvp(fn, primals, tangents):
+    """``torch.func.jvp`` under a process-wide lock.  Forward-mode AD levels
+    are global to the process, so two host threads inside ``jvp`` at once
+    (the scenario mesh runs one a device) would exit each other's level."""
+    with _JVP_LOCK:
+        return torch.func.jvp(fn, primals, tangents)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -103,11 +103,11 @@ def test_perturb_scenarios_matches_jax():
         np.testing.assert_array_equal(p[k].numpy(), np.asarray(jp[k]))
 
 
-def test_quadrotor_batch_iterations_match_jax():
-    """make_initial_state plus 3 altro_iteration steps of a 2-scenario f64
-    quadrotor batch (perturb_scenarios seed 0) agree with JAX's vmap of the
-    same functions after every step: X, U, mux, rho, reg and alpha to
-    atol 1e-8."""
+@pytest.fixture(scope="module")
+def quad_jax():
+    """The 2-scenario f64 quadrotor batch (perturb_scenarios seed 0) in
+    both packages, with JAX's jitted vmaps of make_initial_state and
+    altro_iteration (compiled once for the module)."""
     jsys, jparams, jX0, jU0, jcfg = jquad.make_problem(dtype=jnp.float64,
                                                        backend="xla")
     jp, jx, ju = jbatch.perturb_scenarios(jparams, jX0, jU0, n=2, seed=0)
@@ -121,7 +121,23 @@ def test_quadrotor_batch_iterations_match_jax():
                            device="cpu", dtype=F64)
     X0 = torch.tensor(np.asarray(jx))
     U0 = torch.tensor(np.asarray(ju))
+    return (jp, jx, ju, init, step), (sys_, pb, cfg, X0, U0)
 
+
+def _assert_iteration_matches(st, jst):
+    for name in ("X", "U", "mux", "rho", "reg", "alpha"):
+        np.testing.assert_allclose(getattr(st, name).numpy(),
+                                   np.asarray(getattr(jst, name)),
+                                   rtol=0, atol=1e-8, err_msg=name)
+    np.testing.assert_array_equal(st.iter.numpy(), np.asarray(jst.iter))
+
+
+def test_quadrotor_batch_iterations_match_jax(quad_jax):
+    """make_initial_state plus 3 altro_iteration steps of a 2-scenario f64
+    quadrotor batch (perturb_scenarios seed 0) agree with JAX's vmap of the
+    same functions after every step: X, U, mux, rho, reg and alpha to
+    atol 1e-8."""
+    (jp, jx, ju, init, step), (sys_, pb, cfg, X0, U0) = quad_jax
     jst = init(jp, jx, ju)
     st = altro.make_initial_state(sys_, pb, cfg, X0, U0)
     np.testing.assert_allclose(st.X.numpy(), np.asarray(jst.X), atol=1e-8)
@@ -129,11 +145,28 @@ def test_quadrotor_batch_iterations_match_jax():
     for _ in range(3):
         jst = step(jp, jst)
         st = altro.altro_iteration(sys_, pb, cfg, st)
-        for name in ("X", "U", "mux", "rho", "reg", "alpha"):
-            np.testing.assert_allclose(getattr(st, name).numpy(),
-                                       np.asarray(getattr(jst, name)),
-                                       rtol=0, atol=1e-8, err_msg=name)
-        np.testing.assert_array_equal(st.iter.numpy(), np.asarray(jst.iter))
+        _assert_iteration_matches(st, jst)
+
+
+def test_checkpoint_across_packages(tmp_path, quad_jax):
+    """The JAX package's checkpoint.save of that batch's state after 3
+    iterations loads in the port's checkpoint.load; one more iteration in
+    each package then agrees to atol 1e-8.  (Here and not in
+    test_torch_parallel.py: it reuses the compiled JAX iteration, which
+    takes minutes to compile on the CPU.)"""
+    from dcol_tpu.parallel import checkpoint as jcheckpoint
+    from dcol_tpu_torch.parallel import checkpoint
+
+    (jp, jx, ju, init, step), (sys_, pb, cfg, _, _) = quad_jax
+    jst = init(jp, jx, ju)
+    for _ in range(3):
+        jst = step(jp, jst)
+    path = str(tmp_path / "jax_state.npz")
+    jcheckpoint.save(path, jst)
+    st = checkpoint.load(path, device="cpu")
+    assert len(st.warm) == 7 and int(st.iter[0]) == 3
+    _assert_iteration_matches(altro.altro_iteration(sys_, pb, cfg, st),
+                              step(jp, jst))
 
 
 def test_cli_batch(capsys):

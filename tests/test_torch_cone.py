@@ -76,7 +76,8 @@ def test_horizon_beyond_fixture_raises():
 
 def test_cli_accepts_cone(monkeypatch):
     """``--system coneThroughWall`` (the JAX CLI's name) builds the cone
-    problem; the solve itself is replaced by a stub here."""
+    problem; the solve itself (``solve_batch`` under ``--no-viz``; the
+    renders need ``solve_verbose``'s history) is replaced by a stub here."""
     from dcol_tpu_torch.parallel import batch
 
     class Stop(Exception):
@@ -90,7 +91,8 @@ def test_cli_accepts_cone(monkeypatch):
 
     monkeypatch.setattr(batch, "solve_batch", stub)
     with pytest.raises(Stop):
-        cli.main(["--system", "coneThroughWall", "--device", "cpu"])
+        cli.main(["--system", "coneThroughWall", "--device", "cpu",
+                  "--no-viz"])
     assert isinstance(seen["sys"], cone_through_wall.ConeThroughWall)
 
 
