@@ -52,10 +52,22 @@ Phases, in order; any failure ends the run with a nonzero exit:
      times and the device busy share of one ALTRO iteration;
  13. CLI: ``dcol_tpu_torch.main`` on the piano with ``--verbose --no-viz``
      on the card by default: converged in 35 iterations;
+ 14. latency: the f32 quadrotor (N=100, 11 obstacles), one scenario
+     (``perturb_scenarios(n=1, seed=9, x0_sigma=0.02)``) through
+     ``solve_single``: converged in 44-55 iterations and collision-free by a
+     cold re-check (max h <= convio_tol), 7 PDIP launches per constraint
+     batch; the wall, iterations and launches by start and B.  Then the
+     PDIP kernel against its plain version on that scenario's constraint
+     batches at the path's two batch sizes (cold, warm, warm+skip, phase
+     3's checks): its final trajectory (B = 100 per obstacle) and 4
+     line-search-like candidates between its initial and final
+     trajectories (B = 400 per obstacle).  Last, the f64 piano with
+     ``fd_jacobians=True`` against its golden (iterations, X to 1e-3).
+     The p50 of several solves is ``tools/probe_latency``'s, run on its own;
   9. a JSON line of kernel results, then the last line
      {"ok": true, "device": {...}}.
 
-Each path of phases 4-13 runs with every kernel's launch count set to 0 just
+Each path of phases 4-14 runs with every kernel's launch count set to 0 just
 before it and read just after.  A detailed record goes to
 chiprun_out/chip_smoke.json.
 """
@@ -272,8 +284,9 @@ def compare_pdip(tag, c, G, h, cl, kw):
                                      **kw)
     torch.cuda.synchronize()
     row = {"B": B, "max_abs_err": 0.0}
-    for var, o, r in (("cold", out, ref), ("warm", outw, refw),
-                      ("warm+skip", outs, refs)):
+    for var, o, r, prob in (("cold", out, ref, (c, G, h)),
+                            ("warm", outw, refw, (c, G2, h2)),
+                            ("warm+skip", outs, refs, (c, G2, h2))):
         err = float((o.x[:, 3] - r.x[:, 3]).abs().max())
         torch.testing.assert_close(o.x[:, 3], r.x[:, 3], rtol=2e-3, atol=2e-3)
         # In f32 a lane whose mu ends just above tol froze on a non-finite
@@ -281,17 +294,40 @@ def compare_pdip(tag, c, G, h, cl, kw):
         # of two f32 implementations cannot agree lane for lane.  Hold the
         # kernel to: no fewer converged lanes than the plain version (0.1%
         # of lanes slack), and every disagreeing lane borderline on both
-        # sides (final mu < 10 tol).
+        # sides (final mu < 10 tol).  A disagreeing lane that stopped far
+        # from tol in one version (seen on near-contact trajectories, phase
+        # 14) is held to an f64 solve of the same problem instead: both
+        # versions' alpha to the tolerance above.
         dis = o.converged != r.converged
         agree = 1.0 - float(dis.double().mean())
         n_k, n_p = int(o.converged.sum()), int(r.converged.sum())
         check(n_k >= n_p - 0.001 * B, f"{tag} {var} {cl}: kernel converged "
                                       f"{n_k} lanes, plain {n_p}")
-        mu_dis = torch.cat([(a.s[dis] * a.z[dis]).sum(-1) / cl.degree
-                            for a in (o, r)])
-        bad = mu_dis[~(mu_dis < 10 * kw["tol"])]
-        check(bad.numel() == 0, f"{tag} {var} {cl}: lanes converged in one "
-                                f"version only, final mu {bad.tolist()}")
+        mu_k, mu_p = ((a.s * a.z).sum(-1) / cl.degree for a in (o, r))
+        border = 10 * kw["tol"]
+        far = dis & ~((mu_k < border) & (mu_p < border))
+        far_rows = []
+        if bool(far.any()):
+            r64 = solve_socp(*(a[far].double() for a in prob), cl, tol=1e-9,
+                             max_iters=40)
+            check(bool(r64.converged.all()),
+                  f"{tag} {var} {cl}: the f64 solve did not converge")
+            for j, lane in enumerate(far.nonzero()[:, 0].tolist()):
+                a64 = float(r64.x[j, 3])
+                e_k = abs(float(o.x[lane, 3]) - a64)
+                e_p = abs(float(r.x[lane, 3]) - a64)
+                frozen = "plain" if bool(o.converged[lane]) else "kernel"
+                far_rows.append({
+                    "lane": lane, "frozen": frozen,
+                    "mu_kernel": float(mu_k[lane]),
+                    "mu_plain": float(mu_p[lane]), "alpha_f64": a64,
+                    "err_kernel_f64": e_k, "err_plain_f64": e_p})
+                log(f"[pdip] {tag} {var} {cl}: lane {lane} stopped short in "
+                    f"the {frozen} version only (mu kernel {float(mu_k[lane]):.3e}"
+                    f", plain {float(mu_p[lane]):.3e}); alpha vs f64: kernel "
+                    f"{e_k:.3e}, plain {e_p:.3e}")
+                check(max(e_k, e_p) <= 2e-3 + 2e-3 * abs(a64),
+                      f"{tag} {var} {cl}: lane {lane} misses the f64 alpha")
         it_k = float(o.iters.double().mean())
         it_p = float(r.iters.double().mean())
         check(abs(it_k - it_p) <= 0.05 * it_p,
@@ -299,7 +335,8 @@ def compare_pdip(tag, c, G, h, cl, kw):
         row["max_abs_err"] = max(row["max_abs_err"], err)
         row[var] = {"max_abs_err_alpha": err, "converged_agree": agree,
                     "conv_kernel": n_k / B, "conv_plain": n_p / B,
-                    "mean_iters_kernel": it_k, "mean_iters_plain": it_p}
+                    "mean_iters_kernel": it_k, "mean_iters_plain": it_p,
+                    "far_lanes": far_rows}
     check(int(outs.iters[skip].max()) == 0 and
           int(refs.iters[skip].max()) == 0, f"{tag}: skipped lanes iterated")
     for a, b in zip(outs[:3], refs[:3]):
@@ -909,6 +946,88 @@ def phase_cli(run):
     run.record["cli"] = {"wall_s": wall, "last": lines[-1]}
 
 
+# -- 14. latency ---------------------------------------------------------------
+
+def phase_latency(run):
+    from dcol_tpu_torch.ops import pdip_cuda
+    from dcol_tpu_torch.ops.cones import ConeLayout
+    from dcol_tpu_torch.parallel.batch import solve_single
+    from dcol_tpu_torch.systems import piano_mover
+    from dcol_tpu_torch.tools import probe_latency
+
+    dev = run.dev
+    rec = run.record["latency"] = {}
+    prob = probe_latency.problem(dev)
+    sys_, _, _, _, cfg = prob
+    scen = probe_latency.scenario(prob, probe_latency.WARM_SEED)
+    name = "latency solve_single"
+    st, wall = run.path(name, lambda: probe_latency.solve_one(prob, scen),
+                        ["pdip"])
+    b = probe_latency.batches(pdip_cuda.tally, sys_.scene)
+    check(st.X.shape == (sys_.N, sys_.nx)
+          and bool(torch.isfinite(st.X).all()),
+          f"X of shape {tuple(st.X.shape)} or non-finite")
+    # independent check: a cold re-evaluation of the final trajectory
+    pb = {k: v[None] for k, v in scen[0].items()}
+    hx, _ = sys_.constraints_x_traj(pb, st.X[None])
+    worst = float(hx.max())
+    it = int(st.iter)
+    log(f"[latency] {wall:.3f} s wall, converged {bool(st.converged)}, {it} "
+        f"iterations, {b['launches']} PDIP launches = {b['batches']} "
+        f"constraint batches x {b['launches_per_batch']}; cold re-check max "
+        f"h {worst:.3e} (convio_tol {cfg.convio_tol:g})")
+    run.log_shapes(name)
+    check(bool(st.converged) and 44 <= it <= 55,
+          f"converged {bool(st.converged)} in {it} iterations")
+    check(b["launches_per_batch"] == 7,
+          f"{b['launches_per_batch']} PDIP launches per constraint batch")
+    check(worst <= cfg.convio_tol,
+          f"the final trajectory collides (max h {worst:.3e})")
+    rec.update(b, wall_s=wall, iters=it, max_h=worst,
+               pdip_by_shape=run.record["paths"][name]["pdip_by_shape"])
+
+    # the kernel against its plain version at the path's two batch sizes:
+    # one trajectory (cold and polish batches, B = N n_g) and 4 line-search
+    # candidates (B = 4 N n_g) between the scenario's initial and final
+    # trajectories, on that scenario's obstacles
+    scene, opts = sys_.scene, sys_.scene.opts
+    kw = dict(tol=opts.tol, max_iters=opts.max_iters, jitter=opts.jitter)
+    X0 = scen[1]
+    cands = torch.stack([X0 + a * (st.X - X0) for a in (1.0, 0.5, 0.25,
+                                                         0.125)])
+    rec["pdip"] = []
+    for X in (cands[:1], cands):
+        rs, ps = sys_.robot_pose(X)
+        obs = (pb["obs_r"][:, None], pb["obs_p"][:, None])
+        for (lay, idx), (c, G, h) in zip(scene.groups,
+                                         scene.assemble_groups(rs, ps, *obs)):
+            cl = ConeLayout(lay.n_ort, lay.s1, lay.s2)
+            c, G, h = (a.reshape((-1,) + a.shape[3:]).contiguous()
+                       for a in (c, G, h))
+            row = compare_pdip(f"latency obstacles {idx}", c, G, h, cl, kw)
+            row["layout"] = [lay.nv, cl.n_ort, cl.s1, cl.s2]
+            rec["pdip"].append(row)
+            log(f"[latency] PDIP kernel vs plain, obstacles {idx} nv={lay.nv} "
+                f"{cl} B={c.shape[0]}: {describe(row)}")
+    rec["max_abs_err"] = max(r["max_abs_err"] for r in rec["pdip"])
+
+    # the reference-compatible forward-difference Jacobians on the card
+    sys_p = piano_mover.make_system(fd_jacobians=True)
+    _, params_p, X0_p, U0_p, cfg_p = piano_mover.make_problem(F64, dev)
+    stp, wall = run.path(
+        "piano fd_jacobians solve_single",
+        lambda: solve_single(sys_p, params_p, cfg_p, X0_p, U0_p), ["pdip"])
+    gp = np.load(os.path.join(ROOT, "tests", "goldens", "ref_piano_mover.npz"))
+    perr = float(np.abs(stp.X.cpu().numpy() - gp["X"]).max())
+    log(f"[latency] f64 piano, fd_jacobians=True: {wall:.3f} s, converged "
+        f"{bool(stp.converged)}, iters {int(stp.iter)} (golden "
+        f"{int(gp['iters'])}), max |X - X_golden| {perr:.3e}")
+    check(bool(stp.converged) and int(stp.iter) == int(gp["iters"])
+          and perr < 1e-3, "the FD-Jacobian piano misses its golden")
+    rec["piano_fd"] = {"wall_s": wall, "iters": int(stp.iter),
+                       "max_dX_golden": perr}
+
+
 def main():
     # -- 1. device -----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -931,7 +1050,8 @@ def main():
     t0 = time.perf_counter()
     for phase in (phase_build, phase_pdip, phase_quadrotor, phase_roofline,
                   phase_proximity, phase_cone, phase_mpc, phase_distributed,
-                  phase_blocked_mesh, phase_profile, phase_cli):
+                  phase_blocked_mesh, phase_profile, phase_cli,
+                  phase_latency):
         t = time.perf_counter()
         phase(run)
         log(f"[phase] {phase.__name__[6:]}: {time.perf_counter() - t:.1f} s")
@@ -940,10 +1060,11 @@ def main():
     # -- 9. results --------------------------------------------------------
     fma = run.record["fma_peak"]["float32"]
     pdip = run.record["pdip"]
+    pdip_err = max(pdip["max_abs_err"], run.record["latency"]["max_abs_err"])
     kernels = {"kernels": [
         {"name": "pdip", "route": "cuda",
          "source": "dcol_tpu_torch/csrc/pdip.cu", "replaces": PDIP_TPU_KERNEL,
-         "launches": run.launches("pdip"), "max_abs_err": pdip["max_abs_err"],
+         "launches": run.launches("pdip"), "max_abs_err": pdip_err,
          "ms": pdip["ms"], "plain_ms": pdip["plain_ms"],
          "bound_ms": pdip["bound_ms"], "bound_by": pdip["bound_by"],
          "library_ms": None},

@@ -14,7 +14,9 @@ loops over masks:
   * the Riccati recursion and the rollouts are Python loops over knots,
     batched over scenarios (and line-search candidates);
   * the dynamics Jacobians and envelope gradients are forward-mode
-    (``torch.func.jvp``) with the tangent directions as a leading batch dim.
+    (``torch.func.jvp``) with the tangent directions as a leading batch dim;
+    a system built with ``fd_jacobians=True`` takes the reference's forward
+    differences instead, the perturbations as the same leading dim.
 
 Convergence criteria match the reference: feedforward-gain norm
 ``kmax < atol`` gates the dual update; ``convio < convio_tol`` (with the
@@ -30,6 +32,10 @@ import torch
 
 from dcol_tpu_torch.ops import chol
 from dcol_tpu_torch.systems.base import jvp, scenario_view
+
+# forward-difference step of the reference's dynamics Jacobians
+# (ALTRO.py:77-100), taken when a system is built with fd_jacobians=True
+FD_DELTA = 1e-6
 
 
 @dataclasses.dataclass(frozen=True)
@@ -181,11 +187,23 @@ def eval_constraints(sys, params, X, U, warm=None):
 
 def dynamics_jacobians(sys, params, X, U):
     """A (S, T, nx, nx), B (S, T, nx, nu) of the discrete dynamics at
-    X (S, T, nx), U (S, T, nu): one forward-mode pass with the nx + nu
-    tangent directions as a leading batch dim."""
+    X (S, T, nx), U (S, T, nu).  Exact: one forward-mode pass with the
+    nx + nu tangent directions as a leading batch dim.  With
+    ``sys.fd_jacobians`` the reference's forward differences instead
+    (ALTRO.py:77-100): column i is (f(x + d e_i, u) - f(x, u)) / d with
+    d = ``FD_DELTA``, and B's likewise over u, with the unperturbed step and
+    the nx + nu perturbed ones as one leading batch dim through one
+    ``discrete_dynamics`` call."""
     nx, nu = sys.nx, sys.nu
     n = nx + nu
     E = torch.eye(n, dtype=X.dtype, device=X.device)
+    if sys.fd_jacobians:
+        d = torch.as_tensor(FD_DELTA, dtype=X.dtype, device=X.device)
+        step = torch.cat([torch.zeros_like(E[:1]), d * E])[:, None, None]
+        f = sys.discrete_dynamics(params, X + step[..., :nx],
+                                  U + step[..., nx:])
+        diff = ((f[1:] - f[0]) / d).permute(1, 2, 3, 0)  # (S, T, nx, n)
+        return diff[..., :nx], diff[..., nx:]
     # jvp needs dense (not expanded) primals and tangents
     nX, nU = (n,) + X.shape, (n,) + U.shape
     tx = E[:, None, None, :nx].expand(nX).contiguous()

@@ -158,6 +158,13 @@ class CollisionScene:
         return cat[..., list(self.inv_perm)]
 
     # -- proximity values -------------------------------------------------
+    def alphas(self, r, p, obs_r, obs_p):
+        """(n_obs,) proximity alphas for one robot pose r, p (3,) against
+        obstacles obs_r, obs_p (n_obs, 3): :meth:`alphas_traj` at S = T = 1."""
+        a, _ = self.alphas_traj(r[None, None], p[None, None], obs_r[None],
+                                obs_p[None])
+        return a[0, 0]
+
     def alphas_traj(self, rs, ps, obs_r, obs_p, warm=None, skip=None):
         """(alphas (S, T, n_obs), solver warm state) for robot poses
         rs/ps (S, T, 3)."""
@@ -180,6 +187,13 @@ class CollisionScene:
         d_r, d_p = self._envelope_grads(rs, ps, obs_r, obs_p, xs, zs)
         alphas = self._gather_cols([x[..., 3] for x in xs])
         return alphas, d_r, d_p, new_warm
+
+    def alphas_and_grads(self, r, p, obs_r, obs_p):
+        """Single-pose :meth:`alphas_and_grads_traj`: (alpha (n_obs,),
+        d_r (n_obs, 3), d_p (n_obs, 3))."""
+        a, d_r, d_p, _ = self.alphas_and_grads_traj(
+            r[None, None], p[None, None], obs_r[None], obs_p[None])
+        return a[0, 0], d_r[0, 0], d_p[0, 0]
 
     def _envelope_grads(self, rs, ps, obs_r, obs_p, xs, zs):
         """d alpha / d(r, p) per (scenario, knot, obstacle) with (x, z)
@@ -213,13 +227,21 @@ class System:
     """Static system description.  Subclasses define the continuous
     dynamics, the robot pose of a state, and the map from pose gradients to
     state-Jacobian rows; control bounds and collision constraints are
-    shared."""
+    shared.
+
+    ``fd_jacobians``: the backward pass takes the reference's
+    forward-difference dynamics Jacobians (step ``solver.altro.FD_DELTA``,
+    ALTRO.py:77-100) instead of exact forward-mode AD.  Exact AD is the
+    default (better conditioned); FD mode reproduces the reference's
+    iterate path on nonlinear systems (see
+    ``solver.altro.dynamics_jacobians``)."""
 
     nx: int
     nu: int
     N: int
     dt: float
     scene: CollisionScene
+    fd_jacobians: bool = False
 
     @property
     def ncx(self) -> int:
@@ -253,6 +275,12 @@ class System:
         raise NotImplementedError
 
     # -- state inequality constraints: h = 1 - alpha ---------------------
+    def constraints_x(self, params, x):
+        """(ncx,) constraint values for one state x (nx,); ``params`` of one
+        scenario (no scenario dim, as ``make_problem`` returns them)."""
+        r, p = self.robot_pose(x)
+        return 1.0 - self.scene.alphas(r, p, params["obs_r"], params["obs_p"])
+
     def constraints_x_traj(self, params, X, warm=None, skip=None):
         """((S, T, ncx) constraint values, solver warm state) for state
         trajectories X (S, T, nx).  ``skip``: (S,) bool marking scenarios
@@ -261,6 +289,14 @@ class System:
         a, new_warm = self.scene.alphas_traj(
             rs, ps, params["obs_r"], params["obs_p"], warm=warm, skip=skip)
         return 1.0 - a, new_warm
+
+    def constraints_x_vg(self, params, x):
+        """(h (ncx,), dh/dx (ncx, nx)) for one state x (nx,) in one solve;
+        ``params`` of one scenario."""
+        r, p = self.robot_pose(x)
+        a, d_r, d_p = self.scene.alphas_and_grads(
+            r, p, params["obs_r"], params["obs_p"])
+        return 1.0 - a, self.pose_jacobian_rows(x, d_r, d_p)
 
     def constraints_x_vg_traj(self, params, X, warm=None, skip=None):
         """(h (S, T, ncx), dh/dx (S, T, ncx, nx), warm).  This is the

@@ -52,7 +52,8 @@ class ConeThroughWall(System):
 
 
 def make_system(pdip_tol: float = 1e-6, pdip_iters: int = 30,
-                pdip_jitter: float = 0.0, N: int = 60) -> ConeThroughWall:
+                pdip_jitter: float = 0.0, N: int = 60,
+                fd_jacobians: bool = False) -> ConeThroughWall:
     obstacles = (
         prim.rect_prism(10.0, 10.0, 1.0),
         prim.rect_prism(10.0, 10.0, 1.0),
@@ -61,12 +62,15 @@ def make_system(pdip_tol: float = 1e-6, pdip_iters: int = 30,
     )
     scene = CollisionScene(prim.cone(CONE_H, CONE_BETA), obstacles,
                            ProximityOptions(pdip_tol, pdip_iters, pdip_jitter))
-    return ConeThroughWall(nx=12, nu=6, N=N, dt=0.1, scene=scene)
+    return ConeThroughWall(nx=12, nu=6, N=N, dt=0.1, scene=scene,
+                           fd_jacobians=fd_jacobians)
 
 
-def make_problem(dtype: torch.dtype, device, N: int = 60):
+def make_problem(dtype: torch.dtype = torch.float64, device="cuda",
+                 N: int = 60):
     """(system, params, X0, U0, config) for ONE scenario, with the
-    reference hyperparameters and the pinned seed-2 initial controls.
+    reference hyperparameters and the pinned seed-2 initial controls, on
+    the card unless ``device`` says otherwise.
     Horizons shorter than the reference's 60 knots reuse the leading rows of
     the U0 fixture."""
     device = torch.device(device)

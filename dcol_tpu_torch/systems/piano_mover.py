@@ -44,7 +44,7 @@ class PianoMover(System):
 
 def make_system(pdip_tol: float = 1e-6, pdip_iters: int = 30,
                 pdip_jitter: float = 0.0, N: int = 80,
-                dt: float = 0.1) -> PianoMover:
+                dt: float = 0.1, fd_jacobians: bool = False) -> PianoMover:
     robot = prim.rect_prism(2.5, 0.15, 0.01)            # reference :168
     obstacles = (
         prim.rect_prism(3.0, 3.0, 1.0),
@@ -53,12 +53,15 @@ def make_system(pdip_tol: float = 1e-6, pdip_iters: int = 30,
     )
     scene = CollisionScene(robot, obstacles,
                            ProximityOptions(pdip_tol, pdip_iters, pdip_jitter))
-    return PianoMover(nx=6, nu=3, N=N, dt=dt, scene=scene)
+    return PianoMover(nx=6, nu=3, N=N, dt=dt, scene=scene,
+                      fd_jacobians=fd_jacobians)
 
 
-def make_problem(dtype: torch.dtype, device, N: int = 80):
+def make_problem(dtype: torch.dtype = torch.float64, device="cuda",
+                 N: int = 80):
     """(system, params, X0, U0, config) for ONE scenario, with the
-    reference hyperparameters (:137-219) and pinned initial controls."""
+    reference hyperparameters (:137-219) and pinned initial controls, on
+    the card unless ``device`` says otherwise."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device='cuda' requested but torch.cuda is not "

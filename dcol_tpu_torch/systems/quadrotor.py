@@ -75,7 +75,7 @@ def linear_interp_ref(dt, x0, xg, N):
 
 def make_system(pdip_tol: float = 1e-6, pdip_iters: int = 30,
                 pdip_jitter: float = 0.0, N: int = 100,
-                dt: float = 0.08) -> Quadrotor:
+                dt: float = 0.08, fd_jacobians: bool = False) -> Quadrotor:
     data = np.load(_DATA)
     A_poly, b_poly = prim.n_sided_polygon(5, 0.6)
     obstacles = (
@@ -93,7 +93,8 @@ def make_system(pdip_tol: float = 1e-6, pdip_iters: int = 30,
     )
     scene = CollisionScene(prim.sphere(0.25), obstacles,
                            ProximityOptions(pdip_tol, pdip_iters, pdip_jitter))
-    return Quadrotor(nx=12, nu=4, N=N, dt=dt, scene=scene)
+    return Quadrotor(nx=12, nu=4, N=N, dt=dt, scene=scene,
+                     fd_jacobians=fd_jacobians)
 
 
 # reference :314-331 (Julia-seed-2 obstacle poses), plus floor/ceiling rows
@@ -125,10 +126,12 @@ OBS_P = np.array([
 ])
 
 
-def make_problem(dtype: torch.dtype, device, N: int = 100):
+def make_problem(dtype: torch.dtype = torch.float64, device="cuda",
+                 N: int = 100):
     """(system, params, X0, U0, config) for ONE scenario (params and
     trajectories without the scenario dim; see
-    :func:`dcol_tpu_torch.parallel.batch.perturb_scenarios`)."""
+    :func:`dcol_tpu_torch.parallel.batch.perturb_scenarios`), on the card
+    unless ``device`` says otherwise."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device='cuda' requested but torch.cuda is not "
