@@ -61,13 +61,24 @@ Phases, in order; any failure ends the run with a nonzero exit:
      batches at the path's two batch sizes (cold, warm, warm+skip, phase
      3's checks): its final trajectory (B = 100 per obstacle) and 4
      line-search-like candidates between its initial and final
-     trajectories (B = 400 per obstacle).  Last, the f64 piano with
+     trajectories (B = 400 per obstacle).  A launch with a lane far from
+     tol in one version is written whole to chiprun_out/ (how phase 15's
+     fixture was captured).  Last, the f64 piano with
      ``fd_jacobians=True`` against its golden (iterations, X to 1e-3).
      The p50 of several solves is ``tools/probe_latency``'s, run on its own;
+ 15. hard lanes: the near-contact f32 fixture
+     (tests/torch_fixtures/pdip_near_contact_f32.npz, a cold batch of
+     phase 14's captured on the card) through the kernel, its far lane
+     alone and in place: converged, alpha within 1e-4 of an f64 solve; the
+     lane's trace by max_iters (kernel alone and in place, plain version);
+     NaN isolation inside a launch on phase 3's batches (member 9 of each
+     group with a NaN c or G; cold, warm, warm+skip; every other member
+     bitwise as without the poison); the f64 piano's 4 scenarios of
+     tests/test_robustness.py:39 with scenario 2 poisoned, only it failing;
   9. a JSON line of kernel results, then the last line
      {"ok": true, "device": {...}}.
 
-Each path of phases 4-14 runs with every kernel's launch count set to 0 just
+Each path of phases 4-15 runs with every kernel's launch count set to 0 just
 before it and read just after.  A detailed record goes to
 chiprun_out/chip_smoke.json.
 """
@@ -96,6 +107,9 @@ CONE_F32_MAX_ITERS = 80
 RESUME_CAP = 20   # phase 10: AL iterations before the checkpoint
 # proximity on the card vs on the CPU, f64 at tol 1e-10: x and z
 PROX_RTOL, PROX_ATOL = 1e-8, 1e-8
+# phase 15: the near-contact f32 fixture (tests/torch_fixtures/)
+HARD_ALPHA_ATOL = 1e-4  # the kernel's alpha on its far lane against f64
+NAN_MEMBER = 9  # shares its warp with 7 healthy f32 teams
 
 
 def log(*a):
@@ -264,10 +278,29 @@ def spill_bytes(ptxas):
     return worst
 
 
-def compare_pdip(tag, c, G, h, cl, kw):
+def save_far_batch(stem, c, G, h, cl, kw, start, far, warm=None, skip=None):
+    """Write one launch's whole batch, its cone layout and settings and its
+    far lanes to chiprun_out/<stem>.npz, as the card computed them."""
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    path = os.path.join(ROOT, "chiprun_out", stem + ".npz")
+    arrs = dict(c=c, G=G, h=h)
+    if warm is not None:
+        arrs.update(x_warm=warm[0], s_warm=warm[1], z_warm=warm[2])
+    if skip is not None:
+        arrs["skip"] = skip
+    np.savez(path, **{k: v.cpu().numpy() for k, v in arrs.items()},
+             far_lanes=np.asarray(far, dtype=np.int64),
+             layout=np.array([cl.n_ort, cl.s1, cl.s2]), start=start,
+             tol=kw["tol"], jitter=kw["jitter"], max_iters=kw["max_iters"])
+    log(f"[pdip] far lanes {far} of a {start} launch written to {path}")
+
+
+def compare_pdip(tag, c, G, h, cl, kw, capture=None):
     """The PDIP kernel against its plain version on one flat batch: cold,
     warm (G, h x 1.001 from the plain cold optimum) and warm with every
-    other lane skipped.  Returns the per-variant agreement."""
+    other lane skipped.  Returns the per-variant agreement.  With
+    ``capture`` (a file stem), a launch with far lanes is written to
+    chiprun_out/ (:func:`save_far_batch`)."""
     from dcol_tpu_torch.ops import pdip_cuda
     from dcol_tpu_torch.ops.pdip import solve_socp
 
@@ -284,20 +317,21 @@ def compare_pdip(tag, c, G, h, cl, kw):
                                      **kw)
     torch.cuda.synchronize()
     row = {"B": B, "max_abs_err": 0.0}
-    for var, o, r, prob in (("cold", out, ref, (c, G, h)),
-                            ("warm", outw, refw, (c, G2, h2)),
-                            ("warm+skip", outs, refs, (c, G2, h2))):
+    for var, o, r, prob, wk, sk in (
+            ("cold", out, ref, (c, G, h), None, None),
+            ("warm", outw, refw, (c, G2, h2), warm, None),
+            ("warm+skip", outs, refs, (c, G2, h2), warm, skip)):
         err = float((o.x[:, 3] - r.x[:, 3]).abs().max())
         torch.testing.assert_close(o.x[:, 3], r.x[:, 3], rtol=2e-3, atol=2e-3)
         # In f32 a lane whose mu ends just above tol froze on a non-finite
         # Newton step; which lanes do so depends on rounding, so the flags
         # of two f32 implementations cannot agree lane for lane.  Hold the
         # kernel to: no fewer converged lanes than the plain version (0.1%
-        # of lanes slack), and every disagreeing lane borderline on both
-        # sides (final mu < 10 tol).  A disagreeing lane that stopped far
-        # from tol in one version (seen on near-contact trajectories, phase
-        # 14) is held to an f64 solve of the same problem instead: both
-        # versions' alpha to the tolerance above.
+        # of lanes slack), every disagreeing lane borderline on both sides
+        # (final mu < 10 tol), and no lane that stops far from tol (final
+        # mu >= 10 tol) in the kernel but not in the plain version.  A lane
+        # that stops far in the plain version only is held to an f64 solve
+        # of the same problem: both versions' alpha to the tolerance above.
         dis = o.converged != r.converged
         agree = 1.0 - float(dis.double().mean())
         n_k, n_p = int(o.converged.sum()), int(r.converged.sum())
@@ -305,18 +339,23 @@ def compare_pdip(tag, c, G, h, cl, kw):
                                       f"{n_k} lanes, plain {n_p}")
         mu_k, mu_p = ((a.s * a.z).sum(-1) / cl.degree for a in (o, r))
         border = 10 * kw["tol"]
-        far = dis & ~((mu_k < border) & (mu_p < border))
+        near_k, near_p = mu_k < border, mu_p < border
+        far = (dis & ~(near_k & near_p)) | (near_p & ~near_k)
         far_rows = []
         if bool(far.any()):
+            lanes = far.nonzero()[:, 0].tolist()
+            if capture is not None:
+                save_far_batch(f"{capture}_{var.replace('+', '_')}", *prob,
+                               cl, kw, var, lanes, wk, sk)
             r64 = solve_socp(*(a[far].double() for a in prob), cl, tol=1e-9,
                              max_iters=40)
             check(bool(r64.converged.all()),
                   f"{tag} {var} {cl}: the f64 solve did not converge")
-            for j, lane in enumerate(far.nonzero()[:, 0].tolist()):
+            for j, lane in enumerate(lanes):
                 a64 = float(r64.x[j, 3])
                 e_k = abs(float(o.x[lane, 3]) - a64)
                 e_p = abs(float(r.x[lane, 3]) - a64)
-                frozen = "plain" if bool(o.converged[lane]) else "kernel"
+                frozen = "plain" if bool(near_k[lane]) else "kernel"
                 far_rows.append({
                     "lane": lane, "frozen": frozen,
                     "mu_kernel": float(mu_k[lane]),
@@ -326,8 +365,14 @@ def compare_pdip(tag, c, G, h, cl, kw):
                     f"the {frozen} version only (mu kernel {float(mu_k[lane]):.3e}"
                     f", plain {float(mu_p[lane]):.3e}); alpha vs f64: kernel "
                     f"{e_k:.3e}, plain {e_p:.3e}")
-                check(max(e_k, e_p) <= 2e-3 + 2e-3 * abs(a64),
-                      f"{tag} {var} {cl}: lane {lane} misses the f64 alpha")
+            for fr in far_rows:
+                check(fr["frozen"] == "plain",
+                      f"{tag} {var} {cl}: lane {fr['lane']} stopped far from "
+                      f"tol in the kernel only (mu {fr['mu_kernel']:.3e})")
+                check(max(fr["err_kernel_f64"], fr["err_plain_f64"])
+                      <= 2e-3 + 2e-3 * abs(fr["alpha_f64"]),
+                      f"{tag} {var} {cl}: lane {fr['lane']} misses the f64 "
+                      f"alpha")
         it_k = float(o.iters.double().mean())
         it_p = float(r.iters.double().mean())
         check(abs(it_k - it_p) <= 0.05 * it_p,
@@ -385,10 +430,12 @@ def phase_pdip(run):
     n_total, max_err, ms_total, plain_total = 0, 0.0, 0.0, 0.0
     bound_total, bound_by = 0.0, set()
     run.record["groups"] = []
+    run.xref_batches = []  # phase 15 poisons them
     for (lay, idx, cl), (c, G, h) in zip(groups, grouped):
         B = c.shape[0] * c.shape[1] * c.shape[2]
         c, G, h = (a.reshape((B,) + a.shape[3:]).contiguous()
                    for a in (c, G, h))
+        run.xref_batches.append((idx, cl, c, G, h, kw))
         n_total += B
         row = compare_pdip(f"obstacles {idx}", c, G, h, cl, kw)
         row["layout"] = [lay.nv, cl.n_ort, cl.s1, cl.s2]
@@ -1004,7 +1051,10 @@ def phase_latency(run):
             cl = ConeLayout(lay.n_ort, lay.s1, lay.s2)
             c, G, h = (a.reshape((-1,) + a.shape[3:]).contiguous()
                        for a in (c, G, h))
-            row = compare_pdip(f"latency obstacles {idx}", c, G, h, cl, kw)
+            row = compare_pdip(
+                f"latency obstacles {idx}", c, G, h, cl, kw,
+                capture=f"pdip_far_obstacles_{'_'.join(map(str, idx))}"
+                        f"_B{c.shape[0]}")
             row["layout"] = [lay.nv, cl.n_ort, cl.s1, cl.s2]
             rec["pdip"].append(row)
             log(f"[latency] PDIP kernel vs plain, obstacles {idx} nv={lay.nv} "
@@ -1026,6 +1076,127 @@ def phase_latency(run):
           and perr < 1e-3, "the FD-Jacobian piano misses its golden")
     rec["piano_fd"] = {"wall_s": wall, "iters": int(stp.iter),
                        "max_dX_golden": perr}
+
+
+# -- 15. hard lanes -------------------------------------------------------------
+
+def phase_hard_lanes(run):
+    from dcol_tpu_torch.ops import pdip_cuda
+    from dcol_tpu_torch.ops.pdip import solve_socp
+    from dcol_tpu_torch.parallel.batch import perturb_scenarios, solve_batch
+    from dcol_tpu_torch.systems import piano_mover
+    from dcol_tpu_torch.tools import hard_lanes
+
+    dev = run.dev
+    rec = run.record["hard_lanes"] = {}
+    # the near-contact fixture: the kernel converges on its far lane, alone
+    # and in its place in the batch, with alpha near the f64 solve's
+    fx = hard_lanes.load_fixture(dev)
+    c, G, h, cl, kw, lane = (fx[k] for k in ("c", "G", "h", "lay", "kw",
+                                              "lane"))
+    one = tuple(a[lane:lane + 1].contiguous() for a in (c, G, h))
+    r64 = solve_socp(*(a.double() for a in one), cl, tol=1e-9, max_iters=40)
+    check(bool(r64.converged[0]), "hard lanes: the f64 solve did not converge")
+    a64 = float(r64.x[0, 3])
+    outs, _ = run.path("hard lanes fixture", lambda: {
+        "alone": (pdip_cuda.solve_socp_cuda(*one, cl, **kw), 0),
+        "in place": (pdip_cuda.solve_socp_cuda(c, G, h, cl, **kw), lane)},
+        ["pdip"])
+    for where, (o, i) in outs.items():
+        mu = float((o.s[i].double() * o.z[i]).sum()) / cl.degree
+        err = abs(float(o.x[i, 3]) - a64)
+        log(f"[hard] fixture lane {lane} {where}: converged "
+            f"{bool(o.converged[i])} in {int(o.iters[i])} steps, mu "
+            f"{mu:.3e} (tol {kw['tol']:g}), |alpha - f64| {err:.3e}")
+        rec[f"fixture {where}"] = {"converged": bool(o.converged[i]),
+                                   "iters": int(o.iters[i]), "mu": mu,
+                                   "alpha_err_f64": err}
+        check(bool(o.converged[i]) and mu < kw["tol"]
+              and err <= HARD_ALPHA_ATOL,
+              f"the kernel misses the fixture lane {where}")
+    rec["alpha_f64"] = a64
+
+    # the lane's trace by max_iters, kernel and plain version on the card
+    rec["trace"] = {"kernel": hard_lanes.fixture_traces(
+        pdip_cuda.solve_socp_cuda, fx), "plain": hard_lanes.fixture_traces(
+        solve_socp, fx)}
+    for name, traces in rec["trace"].items():
+        for where, t in traces.items():
+            log(f"[hard] trace, {name} {where}: {t['end']}; (max_iters, "
+                f"steps, mu) " + " ".join(f"{k}:{it}:{mu:.2e}"
+                                          for k, it, mu in t["rows"][7:16]))
+            check(name == "plain" or t["end"].startswith("converged"),
+                  f"hard lanes: the kernel's trace {where} {t['end']}")
+
+    # NaN isolation inside a launch: member 9 of each obstacle group of
+    # phase 3's batch with a NaN c in one launch and a NaN G in another,
+    # cold, warm and warm+skip (even members skipped); the member ends not
+    # converged, every other member bitwise as in the launch without it
+    def nan_launches():
+        rows = []
+        for idx, gcl, gc, gG, gh, gkw in run.xref_batches:
+            base = pdip_cuda.solve_socp_cuda(gc, gG, gh, gcl, **gkw)
+            warm = (base.x, base.s, base.z)
+            G2, h2 = gG * (1 + 1e-3), gh * (1 + 1e-3)
+            skip = torch.arange(gc.shape[0], device=dev) % 2 == 0
+            for start, args, extra in (
+                    ("cold", (gc, gG, gh), {}),
+                    ("warm", (gc, G2, h2), {"warm": warm}),
+                    ("warm+skip", (gc, G2, h2), {"warm": warm,
+                                                 "skip": skip})):
+                clean = pdip_cuda.solve_socp_cuda(*args, gcl, **gkw, **extra)
+                for k in (0, 1):  # c, then G
+                    bad = [a.clone() for a in args]
+                    bad[k][NAN_MEMBER] = float("nan")
+                    out = pdip_cuda.solve_socp_cuda(*bad, gcl, **gkw, **extra)
+                    rows.append((idx, start, "cG"[k], clean, out))
+        return rows
+
+    rows, wall = run.path("hard lanes NaN launches", nan_launches, ["pdip"])
+    for idx, start, field, clean, out in rows:
+        keep = torch.arange(clean.x.shape[0], device=dev) != NAN_MEMBER
+        check(not bool(out.converged[NAN_MEMBER]),
+              f"NaN {field} of member {NAN_MEMBER}, obstacles {idx}, {start}: "
+              f"converged")
+        for name, a, b in zip(out._fields, out, clean):
+            check(torch.equal(a[keep], b[keep]),
+                  f"NaN {field} of member {NAN_MEMBER}, obstacles {idx}, "
+                  f"{start}: the other members' {name} moved")
+    log(f"[hard] NaN isolation: {len(rows)} poisoned launches over "
+        f"{len(run.xref_batches)} obstacle groups (cold, warm, warm+skip; "
+        f"a NaN c, then a NaN G in member {NAN_MEMBER}) in {wall:.3f} s: "
+        f"member {NAN_MEMBER} not converged, every other member bitwise "
+        f"equal to its clean launch")
+    rec["nan_launches"] = len(rows)
+
+    # one poisoned scenario in a batch (tests/test_robustness.py:39)
+    sys_p, params_p, X0_p, U0_p, cfg_p = piano_mover.make_problem(F64, dev)
+    pb, xb, ub = perturb_scenarios(params_p, X0_p, U0_p, n=4, seed=3,
+                                   x0_sigma=0.03)
+    xp = xb.clone()
+    xp[2, 0, 0] = float("nan")
+    clean, _ = run.path("piano x4 seed 3",
+                        lambda: solve_batch(sys_p, pb, cfg_p, xb, ub),
+                        ["pdip"])
+    bad, wall = run.path("piano x4 seed 3, scenario 2 poisoned",
+                         lambda: solve_batch(sys_p, pb, cfg_p, xp, ub),
+                         ["pdip"])
+    log(f"[hard] f64 piano x4, X0[2, 0, 0] = NaN: {wall:.3f} s; clean "
+        f"iterations {clean.iter.tolist()}, converged "
+        f"{clean.converged.tolist()}; poisoned iterations "
+        f"{bad.iter.tolist()}, converged {bad.converged.tolist()}, failed "
+        f"{bad.failed.tolist()}")
+    check(bool(clean.converged.all()), "the clean piano batch did not converge")
+    check(not bool(bad.converged[2]) and bool(bad.failed[2]),
+          "the poisoned piano scenario did not fail")
+    for i in (0, 1, 3):
+        check(bool(bad.converged[i]) and int(bad.iter[i]) == int(clean.iter[i])
+              and torch.equal(bad.X[i], clean.X[i])
+              and torch.equal(bad.U[i], clean.U[i]),
+              f"piano scenario {i} moved when scenario 2 was poisoned")
+    rec["piano_poisoned"] = {"clean_iters": clean.iter.tolist(),
+                             "poisoned_iters": bad.iter.tolist(),
+                             "failed": bad.failed.tolist()}
 
 
 def main():
@@ -1051,7 +1222,7 @@ def main():
     for phase in (phase_build, phase_pdip, phase_quadrotor, phase_roofline,
                   phase_proximity, phase_cone, phase_mpc, phase_distributed,
                   phase_blocked_mesh, phase_profile, phase_cli,
-                  phase_latency):
+                  phase_latency, phase_hard_lanes):
         t = time.perf_counter()
         phase(run)
         log(f"[phase] {phase.__name__[6:]}: {time.perf_counter() - t:.1f} s")

@@ -47,6 +47,8 @@
 //     wrapper copies nothing;
 //   * a skipped problem returns its warm-initialised iterate and reads
 //     neither G, h nor c;
+//   * the SOC line search rounds each product after nu on its own, with
+//     no FMA (see soc_ls);
 //   * the layout, the type and TEAM are template parameters fixed by -D
 //     defines at build time, so every loop unrolls and every per-lane vector
 //     is a register array with constant indices.
@@ -79,6 +81,15 @@ template <typename T> __device__ __forceinline__ T vmin(T a, T b) {
 }
 template <typename T> __device__ __forceinline__ T vmax(T a, T b) {
   return (a != a || a > b) ? a : b;
+}
+
+// a * b rounded on its own: nvcc never contracts it with the add that
+// follows into an FMA
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
 }
 
 // ---- one SOC block, in slots OFF .. OFF+S-1 of a lane's row array --------
@@ -185,23 +196,34 @@ __device__ __forceinline__ void soc_inv(const T (&u)[N], const SocInv<T>& P,
   o[OFF] = head * P.irho;
 }
 
-// largest step in [0, 1] keeping y + a d in the SOC block
+// largest step in [0, 1] keeping y + a d in the SOC block.  Every product
+// after nu is rounded on its own (mul_rn: no FMA).  That is all it shares
+// with the plain version's rounding: zeta subtracts one product at a time
+// where plain subtracts their sum, and it multiplies by 1/nu and 1/sqrt(nu)
+// where plain divides.  Near the cone's boundary, where a collision
+// constraint is active, zeta and rn - rho0 cancel in float32, and how they
+// round decides whether such a lane converges.  With this rounding the
+// near-contact fixture (tests/torch_fixtures/) converges, as in the plain
+// version and JAX's; with FMAs it stopped at 80 x tol.  It does not repair
+// the class: other near-contact lanes still stop far from tol in the kernel
+// only (PERF.md, ROADMAP.md Queue C).
 template <int S, int OFF, typename T, int N>
 __device__ __forceinline__ T soc_ls(const T (&y)[N], const T (&d)[N]) {
   const T tiny = T(1e-25);
   const T nu = vmax(soc_quad<S, OFF>(y), tiny);
   const T sq = dsqrt(nu);
   const T isq = T(1) / sq, inu = T(1) / nu;
-  T zeta = y[OFF] * d[OFF];
+  T zeta = mul_rn(y[OFF], d[OFF]);
 #pragma unroll
-  for (int i = 1; i < S; ++i) zeta -= y[OFF + i] * d[OFF + i];
-  const T rho0 = zeta * inu;
-  const T coef = (zeta * isq + d[OFF]) / (y[OFF] * isq + T(1));
+  for (int i = 1; i < S; ++i) zeta -= mul_rn(y[OFF + i], d[OFF + i]);
+  const T rho0 = mul_rn(zeta, inu);
+  const T coef = (mul_rn(zeta, isq) + d[OFF]) / (mul_rn(y[OFF], isq) + T(1));
   T rn = T(0);
 #pragma unroll
   for (int i = 1; i < S; ++i) {
-    const T r = d[OFF + i] * isq - coef * y[OFF + i] * inu;
-    rn += r * r;
+    const T r = mul_rn(d[OFF + i], isq)
+                - mul_rn(mul_rn(coef, y[OFF + i]), inu);
+    rn += mul_rn(r, r);
   }
   rn = dsqrt(rn);
   const T lim = T(1) / vmax(rn - rho0, tiny);
