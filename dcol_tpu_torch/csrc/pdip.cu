@@ -47,8 +47,8 @@
 //     wrapper copies nothing;
 //   * a skipped problem returns its warm-initialised iterate and reads
 //     neither G, h nor c;
-//   * the SOC line search rounds each product after nu on its own, with
-//     no FMA (see soc_ls);
+//   * x0^2 - |x1|^2 and the SOC line search round as the plain version
+//     does (see soc_quad);
 //   * the layout, the type and TEAM are template parameters fixed by -D
 //     defines at build time, so every loop unrolls and every per-lane vector
 //     is a register array with constant indices.
@@ -96,12 +96,22 @@ __device__ __forceinline__ double mul_rn(double a, double b) {
 // A lane holds its rows in one register array; a block it owns lies whole in
 // it, head first.  A block shorter than S is padded with zeros, which add
 // exact zeros to every sum below.
+//
+// soc_quad and soc_ls compute what the plain version computes
+// (ops/cones.py: soc_quad and _soc_linesearch), in its order: its sums in
+// its order, its divisions, and each product rounded on its own (mul_rn,
+// never contracted into an FMA).  Near the cone's boundary, where a
+// collision constraint is active, x0^2 - |x1|^2, zeta and rn - rho0 cancel
+// in float32, and how they round decides whether a near-contact lane
+// converges; rounded another way (FMAs, reciprocals in place of divisions)
+// the kernel stopped such lanes far from tol where the plain version and
+// JAX's converge (tests/torch_fixtures/pdip_hard_lane_*.npz).
 template <int S, int OFF, typename T, int N>
 __device__ __forceinline__ T soc_quad(const T (&x)[N]) {
   T t = T(0);
 #pragma unroll
-  for (int i = 1; i < S; ++i) t += x[OFF + i] * x[OFF + i];
-  return x[OFF] * x[OFF] - t;
+  for (int i = 1; i < S; ++i) t += mul_rn(x[OFF + i], x[OFF + i]);
+  return mul_rn(x[OFF], x[OFF]) - t;
 }
 
 template <int S, int OFF, typename T, int N>
@@ -196,33 +206,23 @@ __device__ __forceinline__ void soc_inv(const T (&u)[N], const SocInv<T>& P,
   o[OFF] = head * P.irho;
 }
 
-// largest step in [0, 1] keeping y + a d in the SOC block.  Every product
-// after nu is rounded on its own (mul_rn: no FMA).  That is all it shares
-// with the plain version's rounding: zeta subtracts one product at a time
-// where plain subtracts their sum, and it multiplies by 1/nu and 1/sqrt(nu)
-// where plain divides.  Near the cone's boundary, where a collision
-// constraint is active, zeta and rn - rho0 cancel in float32, and how they
-// round decides whether such a lane converges.  With this rounding the
-// near-contact fixture (tests/torch_fixtures/) converges, as in the plain
-// version and JAX's; with FMAs it stopped at 80 x tol.  It does not repair
-// the class: other near-contact lanes still stop far from tol in the kernel
-// only (PERF.md, ROADMAP.md Queue C).
+// largest step in [0, 1] keeping y + a d in the SOC block, as
+// ops/cones.py::_soc_linesearch computes it (see soc_quad)
 template <int S, int OFF, typename T, int N>
 __device__ __forceinline__ T soc_ls(const T (&y)[N], const T (&d)[N]) {
   const T tiny = T(1e-25);
   const T nu = vmax(soc_quad<S, OFF>(y), tiny);
   const T sq = dsqrt(nu);
-  const T isq = T(1) / sq, inu = T(1) / nu;
-  T zeta = mul_rn(y[OFF], d[OFF]);
+  T yd = T(0);
 #pragma unroll
-  for (int i = 1; i < S; ++i) zeta -= mul_rn(y[OFF + i], d[OFF + i]);
-  const T rho0 = mul_rn(zeta, inu);
-  const T coef = (mul_rn(zeta, isq) + d[OFF]) / (mul_rn(y[OFF], isq) + T(1));
+  for (int i = 1; i < S; ++i) yd += mul_rn(y[OFF + i], d[OFF + i]);
+  const T zeta = mul_rn(y[OFF], d[OFF]) - yd;
+  const T rho0 = zeta / nu;
+  const T coef = (zeta / sq + d[OFF]) / (y[OFF] / sq + T(1));
   T rn = T(0);
 #pragma unroll
   for (int i = 1; i < S; ++i) {
-    const T r = mul_rn(d[OFF + i], isq)
-                - mul_rn(mul_rn(coef, y[OFF + i]), inu);
+    const T r = d[OFF + i] / sq - mul_rn(coef, y[OFF + i]) / nu;
     rn += mul_rn(r, r);
   }
   rn = dsqrt(rn);

@@ -56,10 +56,11 @@ def team_lanes(nr: int, dtype) -> int:
     ``nr`` and never fewer than 2.  Measured with ``roofline ab``
     (PERF.md): float32 teams of 2 are 13% faster on the main path's
     launches, but on the quadrotor's obstacle group (9, 10) one warm
-    problem, repeated in every scenario, then ends just above tol where the
-    plain version converges, and ``chip_smoke.py``'s converged count fails;
-    teams of 4 pass.  A wider float64 team holds fewer orthant rows a lane
-    and spills less."""
+    problem, repeated in every scenario, then ended just above tol where
+    the plain version converged, which a converged-count rule failed;
+    teams of 2 are yet to be judged by the per-lane rule that replaced it
+    (``tools/hard_lanes.py::judge_lanes``).  A wider float64 team holds
+    fewer orthant rows a lane and spills less."""
     cap = 4 if dtype == torch.float32 else 8
     team = 2
     while team < min(nr, cap):
