@@ -2,9 +2,12 @@
 float32 rounding decides whether a lane converges.
 
     python -m dcol_tpu_torch.tools.hard_lanes [--capture DIR]
+    python -m dcol_tpu_torch.tools.hard_lanes --system SYSTEM
+        [--dtype {float32,float64}] [--seeds 1-6] [--capture DIR]
 
-Three measurements, each of the kernel against its plain PyTorch version on
-the same card, judged lane by lane by :func:`judge_lanes`:
+Without ``--system``, ``--dtype`` or ``--seeds``, three
+measurements, each of the kernel against its plain PyTorch version on the
+same card, judged lane by lane by :func:`judge`:
 
 1. the near-contact fixture ``tests/torch_fixtures/pdip_near_contact_f32.npz``
    (a cold batch of the f32 quadrotor's obstacle group (1, 7) at the solved
@@ -19,23 +22,38 @@ the same card, judged lane by lane by :func:`judge_lanes`:
    the rule's failing lanes.  ``--capture DIR`` writes each lane that ends
    far in the kernel only to ``DIR`` (:func:`capture`);
 3. the captured lanes ``tests/torch_fixtures/pdip_hard_lane_*.npz``: the
-   kernel on each, alone and in its warp, judged by the rule.
+   kernel on each, alone and in its warp, judged by the rule; and the same
+   on the open lanes ``pdip_open_lane_*.npz``, lanes this kernel is known
+   to stop far on (ROADMAP Queue C), reported and not gated.
+
+With any of them, a run over seeds (:func:`run_seeds`): at each seed one
+``solve_batch`` of the system's ``perturb_scenarios(n, seed,
+x0_sigma=0.02)`` (``n = 1``: the nominal problem) in that dtype, through
+the kernel, with its converged count, iterations, cold re-check and wall
+(the batch-128 f32 quadrotor is held to the main path's guards,
+:func:`main_path_failures`); then that solve's near-contact batches,
+judged as in 2.  Defaults: the quadrotor, float32, seed 0; the scenario
+count is :data:`RUNS`'s.  Exits 1 if a guard or the rule fails.
 
 To measure another checkout's kernel (an unpacked ``git archive`` of the
 parent, say), run this file from that checkout's root with it first on the
 path, ``PYTHONPATH=. python <this checkout>/dcol_tpu_torch/tools/hard_lanes.py``:
 the fixtures are this checkout's, the batches come from that checkout's own
 solve.  Needs a CUDA device and raises without one; the record goes to
-``dcol_tpu_torch/build/hard_lanes.json``.
+``dcol_tpu_torch/build/hard_lanes.json`` (a run over seeds:
+``hard_lanes_<system>_<dtype>.json``).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import glob
 import json
 import os
 import re
+import sys
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -45,6 +63,7 @@ FIXTURES = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "tests", "torch_fixtures")
 FIXTURE = os.path.join(FIXTURES, "pdip_near_contact_f32.npz")
 CAPTURED = "pdip_hard_lane_*.npz"
+OPEN = "pdip_open_lane_*.npz"
 BORDER = 10  # a lane that ends at mu >= BORDER x tol stopped far from tol
 # the rule's alpha floor, relative to 1 + |alpha of the f64 solve|
 ALPHA_ATOL = 1e-4
@@ -53,6 +72,25 @@ ALPHA_ATOL = 1e-4
 FAR_ALPHA_TOL = 2e-3
 F64_KW = dict(tol=1e-9, max_iters=40)  # the reference solve of a lane
 WARP = 32
+# a float64 kernel may converge this share of a batch's lanes fewer than
+# its plain version
+COUNT_SLACK = 1e-3
+# the systems, by their CLI names: the scenario count of a run over seeds
+# and its ALTRO cap (None: the system's own).  Some perturbed f32 cone
+# scenarios iterate past 1,000 ALTRO iterations without failing, so the
+# cone's batch is capped, in both dtypes, as chip_smoke.py's phase 7 caps
+# its f32 batch
+CONE_MAX_ITERS = 80
+RUNS = {"quadrotor": (128, None), "piano_mover": (1, None),
+        "coneThroughWall": (32, CONE_MAX_ITERS)}
+# the main path's guards (bench.py): every scenario converged, a mean of
+# ALTRO iterations in the JAX f32 band, and converged trajectories that
+# reach the goal without collision by a cold re-check
+MAIN_ITERS = (44.0, 55.0)
+MAIN_H_TOL = MAIN_GOAL_TOL = 1e-3
+# the JAX package's mean ALTRO iterations of the batch-128 f32 quadrotor at
+# bench.py's seeds (BENCH_r05.json, printed to one decimal)
+JAX_MEAN_ITERS = {1: 47.6, 2: 47.7, 3: 47.5, 4: 47.5, 5: 47.7, 6: 47.5}
 
 
 def load_fixture(device) -> Dict:
@@ -150,6 +188,73 @@ def judge_lanes(kernel: Dict, plain: Dict, lay, problems, tol: float,
     return out
 
 
+def judge_f64(kernel: Dict, plain: Dict, lay, problems, tol: float) -> Dict:
+    """The rule of a float64 kernel against its plain version, on
+    :func:`lanes_of` one batch ``problems`` = (c, G, h).
+
+    First the count rule: the kernel converges no fewer lanes than plain,
+    COUNT_SLACK of the batch slack (``count_short`` if it does).  Then the
+    far lanes: those whose flags differ with either version far from tol
+    (mu >= BORDER tol), and those far in the kernel only, each solved in
+    float64 (tol 1e-9, 40 iterations), which must converge.  The kernel
+    fails a lane it ends far on, and a lane far in the plain version only
+    whose alphas miss the f64 solve's by more than FAR_ALPHA_TOL (1 +
+    |alpha64|).  The record of :func:`judge_lanes`, with ``count_short``."""
+    from dcol_tpu_torch.ops.pdip import solve_socp
+
+    k, p = ({n: t.cpu() for n, t in d.items()} for d in (kernel, plain))
+    B = len(k["converged"])
+    n_k, n_p = int(k["converged"].sum()), int(p["converged"].sum())
+    bd = BORDER * tol
+    near_k, near_p = k["mu"] < bd, p["mu"] < bd  # a NaN mu is far
+    far = (((k["converged"] != p["converged"]) & ~(near_k & near_p))
+           | (near_p & ~near_k))
+    idx = far.nonzero()[:, 0]
+    out = {"disputed": len(idx), "count_short": n_k < n_p - COUNT_SLACK * B,
+           "lanes": [], "failing": [], "kernel_only_far": [],
+           "plain_only_far": []}
+    if not len(idx):
+        return out
+    dev = problems[0].device
+    r64 = solve_socp(*(a[idx.to(dev)].double() for a in problems), lay,
+                     **F64_KW)
+    conv64, a64 = r64.converged.cpu(), r64.x[:, 3].cpu()
+    e_k = (k["alpha"][idx].double() - a64).abs()
+    e_p = (p["alpha"][idx].double() - a64).abs()
+    nk, np_ = near_k[idx], near_p[idx]
+    fails = {
+        "f64 solve not converged": ~conv64,
+        "far in the kernel": ~nk,
+        "plain-only far lane's alpha": nk & ~(
+            torch.maximum(e_k, e_p) <= FAR_ALPHA_TOL * (1 + a64.abs()))}
+    for j, lane in enumerate(idx.tolist()):
+        row = {"lane": lane, "mu_kernel": float(k["mu"][lane]),
+               "mu_plain": float(p["mu"][lane]), "alpha_f64": float(a64[j]),
+               "err_kernel_f64": float(e_k[j]),
+               "err_plain_f64": float(e_p[j]),
+               "fails": [n for n, m in fails.items() if bool(m[j])]}
+        out["lanes"].append(row)
+        if row["fails"]:
+            out["failing"].append(lane)
+        if bool(np_[j] & ~nk[j]):
+            out["kernel_only_far"].append(lane)
+        if bool(nk[j] & ~np_[j]):
+            out["plain_only_far"].append(lane)
+    return out
+
+
+def judge(kernel: Dict, plain: Dict, lay, problems, tol: float,
+          skip: Optional[torch.Tensor] = None) -> Dict:
+    """The kernel against its plain version on one batch, by the rule of
+    its dtype: :func:`judge_lanes` in float32 (``count_short`` is then
+    False: no count is a rule there), :func:`judge_f64` in float64, where
+    ``skip``'s lanes are held bitwise elsewhere and equal in both."""
+    if problems[0].dtype == torch.float32:
+        return dict(judge_lanes(kernel, plain, lay, problems, tol, skip=skip),
+                    count_short=False)
+    return judge_f64(kernel, plain, lay, problems, tol)
+
+
 def describe_lane(row) -> str:
     return (f"lane {row['lane']}: mu kernel {row['mu_kernel']:.3e}, plain "
             f"{row['mu_plain']:.3e}; |alpha - f64| kernel "
@@ -192,20 +297,94 @@ def fixture_traces(solve, fx) -> Dict:
     return out
 
 
-def main_path_state(device, solved: Optional[torch.Tensor] = None):
-    """The main path's batch-128 f32 quadrotor (``chip_smoke.py`` phase 4's
-    scenarios): (system, scenario parameters, initial and solved
-    trajectories).  ``solved``: the solved trajectories of that solve, if
-    the caller already ran it; else this solves the batch."""
-    from dcol_tpu_torch.parallel.batch import perturb_scenarios, solve_batch
-    from dcol_tpu_torch.systems import quadrotor
+def system_module(system: str):
+    """The module of a system by its CLI name (:data:`RUNS`)."""
+    from dcol_tpu_torch.systems import (
+        cone_through_wall, piano_mover, quadrotor)
 
-    sys_, params, X0, U0, cfg = quadrotor.make_problem(torch.float32, device)
-    pb, xb, ub = perturb_scenarios(params, X0, U0, n=128, seed=0,
-                                   x0_sigma=0.02)
+    mods = {"quadrotor": quadrotor, "piano_mover": piano_mover,
+            "coneThroughWall": cone_through_wall}
+    if system not in mods:
+        raise ValueError(f"unknown system {system!r}: one of {sorted(mods)}")
+    return mods[system]
+
+
+def system_problem(system: str, dtype, device, *, seed: int, n: int,
+                   max_iters: Optional[int] = None):
+    """(system, scenario parameters, X0, U0, config) of ``n`` scenarios of
+    ``system`` in ``dtype``: ``perturb_scenarios(n, seed, x0_sigma=0.02)``,
+    or with ``n = 1`` the nominal problem (``seed`` unused); the ALTRO cap
+    ``max_iters`` if given."""
+    from dcol_tpu_torch.parallel.batch import perturb_scenarios
+
+    sys_, params, X0, U0, cfg = system_module(system).make_problem(dtype,
+                                                                   device)
+    if n == 1:
+        pb, xb, ub = {k: v[None] for k, v in params.items()}, X0[None], U0[None]
+    else:
+        pb, xb, ub = perturb_scenarios(params, X0, U0, n=n, seed=seed,
+                                       x0_sigma=0.02)
+    if max_iters is not None:
+        cfg = dataclasses.replace(cfg, max_iters=max_iters)
+    return sys_, pb, xb, ub, cfg
+
+
+def system_state(system: str, dtype, device, *, seed: int, n: int,
+                 solved: Optional[torch.Tensor] = None,
+                 max_iters: Optional[int] = None):
+    """(system, scenario parameters, initial and solved trajectories) of
+    :func:`system_problem`'s scenarios.  ``solved``: the solved
+    trajectories, if the caller already ran the solve; else this solves
+    the batch (``solve_batch``)."""
+    from dcol_tpu_torch.parallel.batch import solve_batch
+
+    sys_, pb, xb, ub, cfg = system_problem(system, dtype, device, seed=seed,
+                                           n=n, max_iters=max_iters)
     if solved is None:
         solved = solve_batch(sys_, pb, cfg, xb, ub).X
     return sys_, pb, xb, solved
+
+
+def solve_stats(sys_, pb, st) -> Dict:
+    """What a batch solve's guards read: converged and failed counts, the
+    mean and largest ALTRO iteration counts, whether X and U are finite,
+    and a cold re-check of the converged trajectories (max h = 1 - alpha
+    and max |x_N - x_goal|; NaN if none converged)."""
+    from dcol_tpu_torch.solver import altro
+
+    conv = st.converged
+    n_conv = int(conv.sum())
+    iters = st.iter.double()
+    worst = goal = float("nan")
+    if n_conv:
+        hx, _, _ = altro.eval_constraints(sys_, pb, st.X, st.U)
+        worst = float(hx[conv].max())
+        goal = float((st.X[conv, -1] - pb["Xref"][conv, -1]).abs().max())
+    return {"n": int(conv.numel()), "converged": n_conv,
+            "failed": int(st.failed.sum()), "mean_iters": float(iters.mean()),
+            "max_iters": int(iters.max()),
+            "finite": bool(torch.isfinite(st.X).all()
+                           & torch.isfinite(st.U).all()),
+            "max_h": worst, "goal_err": goal,
+            "scenarios_converged": conv.nonzero()[:, 0].tolist(),
+            "iters": st.iter.tolist()}
+
+
+def main_path_failures(stats: Dict) -> List[str]:
+    """The main path's guards on :func:`solve_stats` of a batch solve: each
+    guard it misses, or none."""
+    lo, hi = MAIN_ITERS
+    out = []
+    if stats["converged"] != stats["n"]:
+        out.append(f"only {stats['converged']}/{stats['n']} converged")
+    if not lo <= stats["mean_iters"] <= hi:
+        out.append(f"mean ALTRO iterations {stats['mean_iters']}")
+    if not stats["finite"]:
+        out.append("non-finite states or controls")
+    if not (stats["max_h"] < MAIN_H_TOL and stats["goal_err"] < MAIN_GOAL_TOL):
+        out.append(f"converged trajectories collide or miss the goal (max h "
+                   f"{stats['max_h']:.3e}, goal error {stats['goal_err']:.3e})")
+    return out
 
 
 def near_contact_batches(sys_, pb, xb, X) -> List[Dict]:
@@ -237,26 +416,45 @@ def outputs(solve, batches) -> List[Dict]:
 
 def compare(batches, plain, kernel) -> Dict:
     """Kernel against plain per batch: converged counts, the lanes that end
-    far from tol in one version only, and the rule's verdict
-    (:func:`judge_lanes`)."""
+    far from tol in one version only, and the verdict of the batch's dtype
+    (:func:`judge`)."""
     rows, tot = [], {"problems": 0, "conv_kernel": 0, "conv_plain": 0,
                      "disputed": 0, "failing": 0, "kernel_only_far": 0,
-                     "plain_only_far": 0}
+                     "plain_only_far": 0, "count_short": 0}
     for b, p, k in zip(batches, plain, kernel):
-        v = judge_lanes(k, p, b["lay"], (b["c"], b["G"], b["h"]),
-                        b["kw"]["tol"])
+        v = judge(k, p, b["lay"], (b["c"], b["G"], b["h"]), b["kw"]["tol"])
         r = {"batch": b["name"], "B": b["c"].shape[0],
+             "dtype": str(b["c"].dtype)[6:],
              "conv_kernel": int(k["converged"].sum()),
              "conv_plain": int(p["converged"].sum()),
              "max_abs_err_alpha": float((k["alpha"] - p["alpha"]).abs()
                                         .max()), **v}
         rows.append(r)
-        for key in ("conv_kernel", "conv_plain", "disputed"):
+        for key in ("conv_kernel", "conv_plain", "disputed", "count_short"):
             tot[key] += r[key]
         tot["problems"] += r["B"]
         for key in ("failing", "kernel_only_far", "plain_only_far"):
             tot[key] += len(r[key])
     return {"batches": rows, "totals": tot}
+
+
+def verdict_failures(tot: Dict) -> List[str]:
+    """What :func:`compare`'s totals fail: lanes failing the rule, lanes far
+    from tol in the kernel only, float64 batches short of plain's count."""
+    return [f"{tot[k]} {what}" for k, what in (
+        ("failing", "lanes fail the rule"),
+        ("kernel_only_far", "lanes far from tol in the kernel only"),
+        ("count_short", "f64 batches converge fewer lanes than plain"))
+        if tot[k]]
+
+
+def describe_totals(tot: Dict) -> str:
+    return (f"{tot['problems']:,} problems; converged kernel "
+            f"{tot['conv_kernel']:,}, plain {tot['conv_plain']:,}; far from "
+            f"tol in the kernel only {tot['kernel_only_far']}, in plain only "
+            f"{tot['plain_only_far']}; the rule: {tot['disputed']} disputed, "
+            f"{tot['failing']} failing, {tot['count_short']} f64 batches "
+            f"short of plain's count")
 
 
 def capture(batches, verdicts, directory, solve) -> List[Dict]:
@@ -301,9 +499,9 @@ def capture(batches, verdicts, directory, solve) -> List[Dict]:
     return saved
 
 
-def captured_lanes() -> List[str]:
-    """The captured lanes' files, sorted."""
-    return sorted(glob.glob(os.path.join(FIXTURES, CAPTURED)))
+def captured_lanes(pattern: str = CAPTURED) -> List[str]:
+    """The captured lanes' files (``OPEN``: the open ones), sorted."""
+    return sorted(glob.glob(os.path.join(FIXTURES, pattern)))
 
 
 def load_lane(path, device) -> Dict:
@@ -345,6 +543,14 @@ def judge_captured(solve, lane: Dict) -> Dict:
     return out
 
 
+def _card(device) -> torch.device:
+    device = torch.device(device)
+    if device.type != "cuda" or not torch.cuda.is_available():
+        raise RuntimeError("hard_lanes measures the card's kernel: it needs "
+                           "CUDA")
+    return device
+
+
 def run(device="cuda", out=print, capture_dir=None) -> Dict:
     """The three measurements of this process's kernel against the plain
     version; with ``capture_dir``, the kernel-only far lanes of the
@@ -352,73 +558,187 @@ def run(device="cuda", out=print, capture_dir=None) -> Dict:
     from dcol_tpu_torch.ops import pdip_cuda
     from dcol_tpu_torch.ops.pdip import solve_socp
 
-    device = torch.device(device)
-    if device.type != "cuda" or not torch.cuda.is_available():
-        raise RuntimeError("hard_lanes measures the card's kernel: it needs "
-                           "CUDA")
+    device = _card(device)
     fx = load_fixture(device)
     kernel = pdip_cuda.solve_socp_cuda
-    batches = near_contact_batches(*main_path_state(device))
+    batches = near_contact_batches(*system_state(
+        "quadrotor", torch.float32, device, seed=0, n=128))
     res = {"device": torch.cuda.get_device_name(device),
            "traces": {"plain": fixture_traces(solve_socp, fx),
                       "kernel": fixture_traces(kernel, fx)},
            **compare(batches, outputs(solve_socp, batches),
                      outputs(kernel, batches)),
-           "captured": {os.path.basename(p): judge_captured(
-               kernel, load_lane(p, device)) for p in captured_lanes()}}
+           **{key: {os.path.basename(p): judge_captured(
+               kernel, load_lane(p, device)) for p in captured_lanes(pat)}
+              for key, pat in (("captured", CAPTURED), ("open", OPEN))}}
     for name, traces in res["traces"].items():
         for where, t in traces.items():
             out(f"[hard_lanes] fixture lane {fx['lane']}, {name} {where}: "
                 f"{t['end']}; (max_iters, steps, mu) "
                 + " ".join(f"{k}:{it}:{mu:.2e}" for k, it, mu in t["rows"]))
-    tot = res["totals"]
-    out(f"[hard_lanes] kernel on {len(batches)} near-contact batches "
-        f"({tot['problems']:,} problems): converged {tot['conv_kernel']:,} "
-        f"(plain {tot['conv_plain']:,}); far from tol in the kernel only "
-        f"{tot['kernel_only_far']}, in the plain version only "
-        f"{tot['plain_only_far']}; the rule: {tot['disputed']} disputed "
-        f"lanes, {tot['failing']} failing")
-    for r in res["batches"]:
-        for row in r["lanes"]:
-            out(f"[hard_lanes]   {r['batch']} B={r['B']:,} "
-                + describe_lane(row))
-    for name, v in res["captured"].items():
-        for where, w in v.items():
-            out(f"[hard_lanes] captured {name}, kernel {where}: mu "
-                f"{w['mu']:.3e}, alpha {w['alpha']:.7f}, failing "
-                f"{len(w['failing'])}" + "".join(
-                    f"; {describe_lane(row)}" for row in w["lanes"]))
+    out(f"[hard_lanes] kernel on {len(batches)} near-contact batches: "
+        + describe_totals(res["totals"]))
+    log_lanes(res["batches"], out)
+    for key in ("captured", "open"):
+        for name, v in res[key].items():
+            for where, w in v.items():
+                out(f"[hard_lanes] {key} {name}, kernel {where}: mu "
+                    f"{w['mu']:.3e}, alpha {w['alpha']:.7f}, failing "
+                    f"{len(w['failing'])}" + "".join(
+                        f"; {describe_lane(row)}" for row in w["lanes"]))
     if capture_dir is not None:
         res["capture"] = capture(batches, res["batches"], capture_dir,
                                  kernel)
-        for s in res["capture"]:
-            out(f"[hard_lanes] captured {s['batch']} lane {s['lane']} to "
-                f"{s['path']}: kernel alone mu {s['mu_kernel_alone']:.3e}; "
-                + describe_lane(s))
+        log_capture(res["capture"], out)
     return res
+
+
+def log_lanes(rows, out):
+    for r in rows:
+        for row in r["lanes"]:
+            out(f"[hard_lanes]   {r['batch']} B={r['B']:,} "
+                + describe_lane(row))
+
+
+def log_capture(saved, out):
+    for s in saved:
+        out(f"[hard_lanes] captured {s['batch']} lane {s['lane']} to "
+            f"{s['path']}: kernel alone mu {s['mu_kernel_alone']:.3e}; "
+            + describe_lane(s))
+
+
+def run_seeds(system: str, dtype, seeds, device="cuda", out=print,
+              capture_dir=None) -> Dict:
+    """At each seed, ``system``'s scenarios (:func:`system_problem`, as many
+    as :data:`RUNS` says) solved by ``solve_batch``
+    through the kernel: converged count, iterations, cold re-check, PDIP
+    launches and the host-bound eager wall; the batch-128 f32 quadrotor is
+    held to :func:`main_path_failures`.  Then that solve's near-contact
+    batches, the kernel against plain (:func:`compare`); with
+    ``capture_dir``, their kernel-only far lanes are written there.
+    ``failures`` lists every guard and rule missed."""
+    from dcol_tpu_torch.ops import pdip_cuda
+    from dcol_tpu_torch.ops.pdip import solve_socp
+    from dcol_tpu_torch.parallel.batch import solve_batch
+
+    system_module(system)
+    device = _card(device)
+    n, cap = RUNS[system]
+    name = str(dtype)[6:]
+    main_path = (system, dtype) == ("quadrotor", torch.float32)
+    kernel = pdip_cuda.solve_socp_cuda
+    res = {"device": torch.cuda.get_device_name(device), "system": system,
+           "dtype": name, "n": n, "max_iters": cap, "seeds": [],
+           "failures": []}
+    for seed in seeds:
+        sys_, pb, xb, ub, cfg = system_problem(system, dtype, device,
+                                               seed=seed, n=n, max_iters=cap)
+        torch.cuda.synchronize(device)
+        pdip_cuda.launches = 0
+        t0 = time.perf_counter()
+        st = solve_batch(sys_, pb, cfg, xb, ub)
+        torch.cuda.synchronize(device)
+        row = {"seed": seed, "wall_s": time.perf_counter() - t0,
+               "pdip_launches": pdip_cuda.launches,
+               **solve_stats(sys_, pb, st)}
+        if main_path:
+            row["guards"] = main_path_failures(row)
+            if seed in JAX_MEAN_ITERS:
+                row["jax_mean_iters"] = JAX_MEAN_ITERS[seed]
+                row["delta_jax"] = row["mean_iters"] - JAX_MEAN_ITERS[seed]
+        t0 = time.perf_counter()
+        batches = near_contact_batches(sys_, pb, xb, st.X)
+        for b in batches:
+            b["name"] = f"{system} {name} seed {seed} {b['name']}"
+        v = compare(batches, outputs(solve_socp, batches),
+                    outputs(kernel, batches))
+        row.update(near_contact=v["totals"], batches=v["batches"],
+                   near_contact_s=time.perf_counter() - t0)
+        out(f"[hard_lanes] {system} {name} seed {seed}, {n} scenario(s)"
+            f"{'' if cap is None else f' capped at {cap}'}: "
+            f"{row['wall_s']:.3f} s host-bound eager wall, "
+            f"{row['pdip_launches']} PDIP launches; converged "
+            f"{row['converged']}/{n} (not: "
+            f"{sorted(set(range(n)) - set(row['scenarios_converged']))}), "
+            f"failed "
+            f"{row['failed']}, mean iters {row['mean_iters']:.4f}"
+            + (f" (JAX {row['jax_mean_iters']}, delta "
+               f"{row['delta_jax']:+.4f})" if "delta_jax" in row else "")
+            + f", max {row['max_iters']}; cold re-check max h "
+            f"{row['max_h']:.3e}, goal error {row['goal_err']:.3e}")
+        out(f"[hard_lanes]   iters {row['iters']}")
+        out(f"[hard_lanes]   {len(batches)} near-contact batches in "
+            f"{row['near_contact_s']:.1f} s: "
+            + describe_totals(row["near_contact"]))
+        log_lanes(v["batches"], out)
+        missed = row.get("guards", []) + verdict_failures(row["near_contact"])
+        res["failures"] += [f"seed {seed}: {m}" for m in missed]
+        for m in missed:
+            out(f"[hard_lanes]   FAILS: {m}")
+        if capture_dir is not None:
+            row["capture"] = capture(batches, v["batches"], capture_dir,
+                                     kernel)
+            log_capture(row["capture"], out)
+        res["seeds"].append(row)
+    return res
+
+
+def parse_seeds(text: str) -> List[int]:
+    """Seeds from "1-6", "0", or a comma list of either ("0-2,5")."""
+    seeds = []
+    for part in text.split(","):
+        m = re.fullmatch(r"\s*(\d+)\s*(?:-\s*(\d+)\s*)?", part)
+        if not m or int(m.group(2) or m.group(1)) < int(m.group(1)):
+            raise argparse.ArgumentTypeError(
+                f"seeds {text!r}: give a seed or a range such as 1-6")
+        seeds += range(int(m.group(1)), int(m.group(2) or m.group(1)) + 1)
+    return seeds
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--capture", metavar="DIR",
+                    help="write the kernel-only far lanes of the "
+                         "near-contact batches to DIR")
+    ap.add_argument("--system", choices=sorted(RUNS),
+                    help="solve this system at --seeds (default quadrotor)")
+    ap.add_argument("--dtype", choices=["float32", "float64"],
+                    help="the solve's dtype (default float32)")
+    ap.add_argument("--seeds", type=parse_seeds,
+                    help="perturb_scenarios seeds, such as 1-6 (default 0)")
+    return ap.parse_args(argv)
 
 
 def main(argv=None):
     from dcol_tpu_torch.ops import nvcc_build
 
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--capture", metavar="DIR",
-                    help="write the kernel-only far lanes of the "
-                         "near-contact batches to DIR")
-    args = ap.parse_args(argv)
-    res = run(capture_dir=args.capture)
+    args = parse_args(argv)
     os.makedirs(nvcc_build.BUILD_DIR, exist_ok=True)
-    path = os.path.join(nvcc_build.BUILD_DIR, "hard_lanes.json")
-    with open(path, "w") as f:
+    if (args.system, args.dtype, args.seeds) == (None,) * 3:
+        res = run(capture_dir=args.capture)
+        summary = {"traces": {n: {w: t["end"] for w, t in v.items()}
+                              for n, v in res["traces"].items()},
+                   **{f"{key}_failing": {
+                       n: {w: len(x["failing"]) for w, x in v.items()}
+                       for n, v in res[key].items()}
+                      for key in ("captured", "open")},
+                   **res["totals"]}
+        stem = "hard_lanes"
+    else:
+        system, dtype = args.system or "quadrotor", args.dtype or "float32"
+        res = run_seeds(system, getattr(torch, dtype), args.seeds or [0],
+                        capture_dir=args.capture)
+        summary = {"system": system, "dtype": dtype, "seeds": [
+            {k: r.get(k) for k in (
+                "seed", "converged", "n", "mean_iters", "delta_jax", "max_h",
+                "goal_err", "pdip_launches", "wall_s", "near_contact")}
+            for r in res["seeds"]], "failures": res["failures"]}
+        stem = f"hard_lanes_{system}_{dtype}"
+    with open(os.path.join(nvcc_build.BUILD_DIR, stem + ".json"), "w") as f:
         json.dump(res, f, indent=1)
-    print(json.dumps({"traces": {n: {w: t["end"] for w, t in v.items()}
-                                 for n, v in res["traces"].items()},
-                      "captured_failing": {
-                          n: {w: len(x["failing"]) for w, x in v.items()}
-                          for n, v in res["captured"].items()},
-                      **res["totals"]}), flush=True)
+    print(json.dumps(summary), flush=True)
     return res
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(1 if main().get("failures") else 0)

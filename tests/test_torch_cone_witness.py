@@ -1,56 +1,61 @@
-"""Witness for the f32 cone-through-wall batch: which of the 32 perturbed
+"""Witness for the cone-through-wall batch: which of the 32 perturbed
 scenarios converge in the JAX package, beside the port.
 
-    python -m tests.test_torch_cone_witness [--port]
+    python -m tests.test_torch_cone_witness [--port] [--seed S]
+        [--dtype {float32,float64}]
 
-Solves the 32 ``perturb_scenarios(seed=0, x0_sigma=0.02)`` f32 cone
-scenarios with the JAX package on the CPU, capped at CONE_F32_MAX_ITERS
-ALTRO iterations as ``chip_smoke.py`` caps the port's batch, and prints the
+Solves the 32 ``perturb_scenarios(seed=S, x0_sigma=0.02)`` cone scenarios
+(S = 0 and float32 unless told otherwise) with the JAX package on the CPU,
+capped at CONE_MAX_ITERS ALTRO iterations as ``chip_smoke.py`` and
+``dcol_tpu_torch.tools.hard_lanes`` cap the port's batch, and prints the
 converged scenarios and iteration counts as one JSON line.  ``--port``
 also runs the port's plain PDIP path on the CPU on the same scenarios.
 The run takes minutes, so it is a script; the test below only checks that
-both packages start from the same f32 scenarios."""
+both packages start from the same f32 scenarios at seeds 0-2."""
 
+import argparse
 import dataclasses
 import json
-import sys
 import time
 
 import numpy as np
+import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
-from chip_smoke import CONE_F32_MAX_ITERS
 from dcol_tpu.parallel import batch as jbatch
 from dcol_tpu.systems import cone_through_wall as jcone
 from dcol_tpu_torch.parallel import batch
 from dcol_tpu_torch.systems import cone_through_wall
+from dcol_tpu_torch.tools.hard_lanes import CONE_MAX_ITERS
 
 N_SCENARIOS = 32
 
 
-def _jax_problem():
-    sys_, params, X0, U0, cfg = jcone.make_problem(dtype=jnp.float32)
+def _jax_problem(seed=0, dtype="float32"):
+    sys_, params, X0, U0, cfg = jcone.make_problem(dtype=getattr(jnp, dtype))
     pb, xb, ub = jbatch.perturb_scenarios(params, X0, U0, n=N_SCENARIOS,
-                                          seed=0, x0_sigma=0.02)
+                                          seed=seed, x0_sigma=0.02)
     return sys_, pb, xb, ub, dataclasses.replace(
-        cfg, max_iters=CONE_F32_MAX_ITERS)
+        cfg, max_iters=CONE_MAX_ITERS)
 
 
-def _port_problem():
-    sys_, params, X0, U0, cfg = cone_through_wall.make_problem(torch.float32,
-                                                               "cpu")
+def _port_problem(seed=0, dtype="float32"):
+    sys_, params, X0, U0, cfg = cone_through_wall.make_problem(
+        getattr(torch, dtype), "cpu")
     pb, xb, ub = batch.perturb_scenarios(params, X0, U0, n=N_SCENARIOS,
-                                         seed=0, x0_sigma=0.02)
+                                         seed=seed, x0_sigma=0.02)
     return sys_, pb, xb, ub, dataclasses.replace(
-        cfg, max_iters=CONE_F32_MAX_ITERS)
+        cfg, max_iters=CONE_MAX_ITERS)
 
 
-def test_witness_scenarios_match():
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_witness_scenarios_match(seed):
     """The JAX package and the port perturb the same f32 scenarios."""
-    _, jpb, jxb, jub, _ = _jax_problem()
-    _, pb, xb, ub, _ = _port_problem()
+    _, jpb, jxb, jub, _ = _jax_problem(seed)
+    _, pb, xb, ub, _ = _port_problem(seed)
     np.testing.assert_array_equal(np.asarray(jxb), xb.numpy())
     np.testing.assert_array_equal(np.asarray(jub), ub.numpy())
     for k in pb:
@@ -63,22 +68,33 @@ def _summary(converged, iters, wall):
             "iters": [int(i) for i in np.asarray(iters)], "wall_s": wall}
 
 
-def main(argv):
-    out = {"max_iters": CONE_F32_MAX_ITERS}
-    sys_, pb, xb, ub, cfg = _jax_problem()
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--port", action="store_true",
+                    help="also solve through the port's plain version")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="perturb_scenarios seed (default 0)")
+    ap.add_argument("--dtype", choices=["float32", "float64"],
+                    default="float32")
+    args = ap.parse_args(argv)
+    if args.dtype == "float64":
+        jax.config.update("jax_enable_x64", True)
+    tag = "f32" if args.dtype == "float32" else "f64"
+    out = {"max_iters": CONE_MAX_ITERS, "seed": args.seed}
+    sys_, pb, xb, ub, cfg = _jax_problem(args.seed, args.dtype)
     t0 = time.perf_counter()
     st = jbatch.solve_batch(sys_, pb, cfg, xb, ub)
-    out["jax_f32_cpu"] = _summary(st.converged, st.iter,
-                                  time.perf_counter() - t0)
-    if "--port" in argv:
-        sys_, pb, xb, ub, cfg = _port_problem()
+    out[f"jax_{tag}_cpu"] = _summary(st.converged, st.iter,
+                                     time.perf_counter() - t0)
+    if args.port:
+        sys_, pb, xb, ub, cfg = _port_problem(args.seed, args.dtype)
         t0 = time.perf_counter()
         st = batch.solve_batch(sys_, pb, cfg, xb, ub)
-        out["port_plain_f32_cpu"] = _summary(st.converged.numpy(),
-                                             st.iter.numpy(),
-                                             time.perf_counter() - t0)
+        out[f"port_plain_{tag}_cpu"] = _summary(st.converged.numpy(),
+                                                st.iter.numpy(),
+                                                time.perf_counter() - t0)
     print(json.dumps(out))
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:])
+    main()

@@ -7,11 +7,15 @@ lane that ends far from tol in the kernel only fails, a borderline lane
 with a good alpha passes, a lane with a bad alpha fails, and a lane far in
 the plain version only is held to 2e-3.
 
-Each captured lane is one that an earlier kernel (its x0^2 - |x1|^2 and
-SOC line search rounded otherwise than the plain version) stopped far from
-tol (mu >= 10 tol) in one batch-128 main-path solve's near-contact batches,
-where its plain version converged; the file holds the problems of its warp
-(8 in float32, 4 lanes a team).  On the CPU the port's plain version, JAX's f32
+Each captured lane is one that a kernel stopped far from tol (mu >= 10
+tol) in one batch-128 main-path solve's near-contact batches, where its
+plain version converged; the file holds the problems of its warp (8 in
+float32, 4 lanes a team).  Five (seed 0) are an earlier kernel's, which
+rounded x0^2 - |x1|^2 and the SOC line search otherwise than the plain
+version; three (seeds 4-6) a variant's whose Nesterov-Todd scaling divided
+where this kernel multiplies by reciprocals.  The open lane
+(``pdip_open_lane_*.npz``, seed 5) is one this kernel stops far on: a known
+fault, pinned here on the reference solvers.  On the CPU the port's plain version, JAX's f32
 ``solve_socp`` and JAX's Pallas kernel in interpret mode each meet the rule
 against an f64 solve on every captured lane: near tol (mu < 10 tol), alpha
 within 1e-4 (1 + |alpha|) of the f64 solve's.  So the far stops were the
@@ -34,6 +38,8 @@ torch.set_num_threads(1)
 
 LANES = hard_lanes.captured_lanes()
 NAMES = [hard_lanes.load_lane(p, "cpu")["name"] for p in LANES]
+OPEN = hard_lanes.captured_lanes(hard_lanes.OPEN)
+OPEN_NAMES = [hard_lanes.load_lane(p, "cpu")["name"] for p in OPEN]
 
 
 @pytest.fixture(scope="module")
@@ -110,11 +116,11 @@ def test_rule_plain_only_far_lane_held_to_2e_3(fixture_batch, d_alpha,
 
 
 def test_captured_lanes_are_warps():
-    """Five lanes were captured, each with its warp's 8 problems (float32,
-    teams of 4), its batch's settings and the kernel's far stop, alone as
-    in the batch."""
-    assert len(LANES) == 5
-    for p in LANES:
+    """Eight lanes were captured and one is open, each with its warp's 8
+    problems (float32, teams of 4), its batch's settings and the capturing
+    kernel's far stop, alone as in the batch."""
+    assert (len(LANES), len(OPEN)) == (8, 1)
+    for p in LANES + OPEN:
         f = np.load(p)
         ln = hard_lanes.load_lane(p, "cpu")
         assert ln["c"].dtype == torch.float32 and ln["c"].shape[0] == 8
@@ -140,11 +146,11 @@ def _meets_rule_f64(name, mu, alpha, lane):
 
 
 @pytest.mark.parametrize("solver", ["plain", "jax", "pallas_interpret"])
-@pytest.mark.parametrize("path", LANES, ids=NAMES)
+@pytest.mark.parametrize("path", LANES + OPEN, ids=NAMES + OPEN_NAMES)
 def test_captured_lane_reference_solvers(path, solver):
     """The port's plain version, JAX's solve_socp and JAX's Pallas kernel
     in interpret mode (as tests/test_pdip_pallas.py:42 runs it), all in
-    float32 on the CPU, on the captured lane alone."""
+    float32 on the CPU, on the captured or open lane alone."""
     lane = hard_lanes.load_lane(path, "cpu")
     i, lay, kw = lane["lane"], lane["lay"], lane["kw"]
     one = [lane[k][i:i + 1] for k in ("c", "G", "h")]
@@ -205,3 +211,21 @@ def test_captured_lane_kernel_on_card(path):
     for where, w in v.items():
         assert w["failing"] == [], (where, w["lanes"])
         assert w["mu"] < hard_lanes.BORDER * 2e-5, (where, w["mu"])
+
+
+def test_lane_steps_on_cpu():
+    """tools/lane_steps.py with the plain version: on the open lane it
+    converges in 16 steps, and one step from its iterate k (a warm start
+    with no margin) reproduces its iterate k + 1 bitwise.  Its measurement
+    needs the card and raises without one."""
+    from dcol_tpu_torch.tools import lane_steps
+
+    path = OPEN[0]
+    lane = hard_lanes.load_lane(path, "cpu")
+    its = lane_steps.iterates(solve_socp, lane)
+    assert int(its["steps"][-1]) == 16 and its["mu"][-1] < lane["kw"]["tol"]
+    for k in (13, 14, 15):
+        assert lane_steps.step(solve_socp, lane, its, k) == its["mu"][k]
+    assert lane_steps.parse_steps("13-15") == range(13, 16)
+    with pytest.raises(RuntimeError, match="needs CUDA"):
+        lane_steps.run(path, device="cpu")

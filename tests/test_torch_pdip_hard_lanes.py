@@ -15,6 +15,10 @@ tools/hard_lanes.py; tests/test_torch_lane_rule.py).
 NaN isolation inside one kernel launch: a poisoned member (its c or its G)
 ends not converged, and every other member comes out bitwise as in the same
 launch without the poison, also members whose team shares its warp.
+
+On the card the kernel also meets the rule of each dtype
+(``hard_lanes.judge``) on the piano's and the cone's near-contact batches
+at their initial rollouts.
 """
 
 import numpy as np
@@ -27,6 +31,7 @@ from dcol_tpu.ops.pdip_pallas import solve_socp_pallas
 from dcol_tpu_torch.ops import pdip_cuda
 from dcol_tpu_torch.ops.cones import ConeLayout
 from dcol_tpu_torch.ops.pdip import solve_socp
+from dcol_tpu_torch.solver import altro
 from dcol_tpu_torch.tools import hard_lanes
 from tests.test_pdip_pallas import _padded_batch
 
@@ -231,3 +236,24 @@ def test_nan_member_isolated_in_launch_on_card(dtype, start):
             keep = torch.arange(c.shape[0], device=dev) != member
             for a, b in zip(out, clean):
                 assert torch.equal(a[keep], b[keep]), (member, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("system", ["piano_mover", "coneThroughWall"])
+def test_system_near_contact_batches_on_card(system, dtype):
+    """The kernel against its plain version on the system's near-contact
+    batches at the initial rollouts of its hard_lanes.RUNS scenarios (the
+    nominal piano, the cone's 32 of seed 0), by the rule of the dtype: no
+    failing lane, none far from tol in the kernel only, no f64 batch short
+    of plain's converged count."""
+    dev = _card()
+    sys_, pb, xb, ub, _ = hard_lanes.system_problem(
+        system, dtype, dev, seed=0, n=hard_lanes.RUNS[system][0])
+    X = altro.initial_rollout(sys_, pb, xb[:, 0], ub)
+    batches = hard_lanes.near_contact_batches(sys_, pb, xb, X)
+    res = hard_lanes.compare(
+        batches, hard_lanes.outputs(solve_socp, batches),
+        hard_lanes.outputs(pdip_cuda.solve_socp_cuda, batches))
+    assert hard_lanes.verdict_failures(res["totals"]) == [], res["totals"]
