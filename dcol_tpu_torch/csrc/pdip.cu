@@ -10,16 +10,40 @@
 // bring2cone) or warm start (previous s, z shifted inward by `margin`, then
 // bring2cone); skip lanes start done and return the warm-initialised iterate.
 //
+// Two types.  Operands and results are in the storage type S (DCOL_T, the
+// caller's dtype); the iteration runs in the arithmetic type T (DCOL_A).
+// The wrapper picks T from the dtype and the layout
+// (ops/pdip_cuda.py::arith_dtype): double for a float problem with a
+// second-order-cone block, otherwise S itself.  Near contact, where a
+// collision constraint is active, the scaled Newton system of such a
+// problem is ill-conditioned near tol in float.  Iterating in float, this
+// kernel stopped far from tol on 1 of the 1.69 M near-contact problems of
+// the main path's seeds 1-6, and a variant that rounds the NT scaling as
+// the plain version does on 3 others: which lanes is a matter of rounding
+// (PERF.md §6).  In double, from the same float operands, all 3.66 M of
+// seeds 0-12 converge.
+// So a mixed launch solves the caller's float problem to the same tol and
+// returns float x, s and z; the converged flag comes from the double mu.
+// Double arithmetic runs at half the float rate on this card, and a
+// double iterate takes twice the registers:
+//   * G, h and c stay in registers as read, in S, and are widened where
+//     they are used (exactly; see widen), so no widened copy of G is held;
+//     the columns of W^{-1} G are formed where the Newton solves use them,
+//     not held between them; the iterate and everything derived from it
+//     are in T;
+//   * the warm start (the shift and bring2cone) runs in S before the
+//     iterate is widened, so a skipped problem returns, bit for bit, the
+//     float iterate the plain version returns; cold starts run in T.
+//
 // What bounds it on the card.  A problem is nv <= 6 columns by nr <= 18
-// rows, read once (429 B for the f32 5/4/4/4 layout cold, 546 B warm) and
+// rows, read once (429 B for the float 5/4/4/4 layout cold, 546 B warm) and
 // then iterated on: one Mehrotra iteration is ~4 kFLOP, much of it in
 // dependent chains (two Cholesky solves, ~10 scaling applies, four cone
 // line searches, ~50 divides and square roots).  On the main path's
-// launches (B = 6,400-102,400, 2-15 iterations) the bound is arithmetic for
-// cold launches and memory for warm ones, a few microseconds either way;
-// what the kernel actually waits on is latency and issue slots.  The first
-// version (one problem per thread) had 50-800 blocks of 128 threads for 132
-// SMs, 212-255 registers a thread, and nothing to hide each thread's chain.
+// launches (B = 12,800-102,400, 1-15 iterations) the bound is double
+// arithmetic for cold launches and memory for warm ones, a few
+// microseconds either way; what the kernel actually waits on is latency
+// and issue slots.
 //
 // What the design does about it:
 //   * a team of TEAM lanes (a power of two from 2 to 32) solves one problem,
@@ -27,9 +51,9 @@
 //     cone block never straddles lanes: lane l holds orthant rows l,
 //     l + TEAM, ... and second-order-cone block l whole (see Team below).
 //     Each cone operation then runs on the lane that holds the block, with
-//     no exchange; the two blocks run side by side on lanes 0 and 1.  x, c,
-//     dx, the Cholesky factor and its reciprocal diagonal are replicated on
-//     every lane;
+//     no exchange; the two blocks run side by side on lanes 0 and 1.  x, c
+//     and dx are replicated on every lane; the Cholesky factor, the same
+//     on every lane, is kept once per team in shared memory (Team::share);
 //   * sums over all rows (dot products, G'z, the Gram matrix of W^{-1}G)
 //     are __shfl_xor_sync butterflies over the team, which leave the same
 //     bits on every lane; the line search's minimum and bring2cone's
@@ -49,7 +73,7 @@
 //     neither G, h nor c;
 //   * x0^2 - |x1|^2 and the SOC line search round as the plain version
 //     does (see soc_quad);
-//   * the layout, the type and TEAM are template parameters fixed by -D
+//   * the layout, both types and TEAM are template parameters fixed by -D
 //     defines at build time, so every loop unrolls and every per-lane vector
 //     is a register array with constant indices.
 
@@ -58,9 +82,10 @@
 
 #include <type_traits>
 
-#if !defined(DCOL_T) || !defined(DCOL_NV) || !defined(DCOL_NORT) || \
-    !defined(DCOL_S1) || !defined(DCOL_S2) || !defined(DCOL_TEAM)
-#error "build with -DDCOL_T=float|double -DDCOL_NV= -DDCOL_NORT= -DDCOL_S1= -DDCOL_S2= -DDCOL_TEAM="
+#if !defined(DCOL_T) || !defined(DCOL_A) || !defined(DCOL_NV) || \
+    !defined(DCOL_NORT) || !defined(DCOL_S1) || !defined(DCOL_S2) ||   \
+    !defined(DCOL_TEAM)
+#error "build with -DDCOL_T=float|double -DDCOL_A=float|double -DDCOL_NV= -DDCOL_NORT= -DDCOL_S1= -DDCOL_S2= -DDCOL_TEAM="
 #endif
 
 namespace {
@@ -92,6 +117,26 @@ __device__ __forceinline__ double mul_rn(double a, double b) {
   return __dmul_rn(a, b);
 }
 
+// u widened to T.  Where T is wider than u's type the conversion is an
+// instruction the compiler may neither merge with another nor hoist (asm
+// volatile): each use of an operand held in the narrower type converts it
+// anew (exactly), so G stays in registers at its own width instead of as a
+// widened copy held through the loop, and the columns of W^{-1} G formed
+// from it are not merged into one array held through the Newton solves.
+template <typename T, typename U>
+__device__ __forceinline__ T widen(U u) {
+  if constexpr (std::is_same<T, U>::value) {
+    return u;
+  } else {
+    static_assert(std::is_same<T, double>::value &&
+                      std::is_same<U, float>::value,
+                  "widen: float to double only");
+    double d;
+    asm volatile("cvt.f64.f32 %0, %1;" : "=d"(d) : "f"(u));
+    return d;
+  }
+}
+
 // ---- one SOC block, in slots OFF .. OFF+S-1 of a lane's row array --------
 // A lane holds its rows in one register array; a block it owns lies whole in
 // it, head first.  A block shorter than S is padded with zeros, which add
@@ -101,11 +146,10 @@ __device__ __forceinline__ double mul_rn(double a, double b) {
 // (ops/cones.py: soc_quad and _soc_linesearch), in its order: its sums in
 // its order, its divisions, and each product rounded on its own (mul_rn,
 // never contracted into an FMA).  Near the cone's boundary, where a
-// collision constraint is active, x0^2 - |x1|^2, zeta and rn - rho0 cancel
-// in float32, and how they round decides whether a near-contact lane
-// converges; rounded another way (FMAs, reciprocals in place of divisions)
-// the kernel stopped such lanes far from tol where the plain version and
-// JAX's converge (tests/torch_fixtures/pdip_hard_lane_*.npz).
+// collision constraint is active, x0^2 - |x1|^2, zeta and rn - rho0
+// cancel, and how they round decides how a near-contact lane ends; in the
+// plain version's order the kernel's iteration counts follow plain's.
+// These blocks are only ever computed in double (see the header).
 template <int S, int OFF, typename T, int N>
 __device__ __forceinline__ T soc_quad(const T (&x)[N]) {
   T t = T(0);
@@ -149,19 +193,22 @@ __device__ __forceinline__ void soc_nt(const T (&s)[N], const T (&z)[N],
   W.iw = T(1) / (T(1) + W.wb[0]);
 }
 
-// o = eta Wbar v (INV = false) or its inverse, on the block's slots
-template <bool INV, int S, int OFF, typename T, int N>
+// o = eta Wbar v (INV = false) or its inverse, on the block's slots; v may
+// be held in a narrower type than T (a row of G), widened here
+template <bool INV, int S, int OFF, typename T, typename U, int N>
 __device__ __forceinline__ void soc_apply(const SocScale<T, S>& W,
-                                          const T (&v)[N], T (&o)[N]) {
+                                          const U (&v)[N], T (&o)[N]) {
   T w1v1 = T(0);
 #pragma unroll
-  for (int i = 1; i < S; ++i) w1v1 += W.wb[i] * v[OFF + i];
+  for (int i = 1; i < S; ++i) w1v1 += W.wb[i] * widen<T>(v[OFF + i]);
   const T sg = INV ? T(-1) : T(1);
   const T sc = INV ? W.ieta : W.eta;
-  const T coef = sg * v[OFF] + w1v1 * W.iw;
-  const T head = W.wb[0] * v[OFF] + sg * w1v1;
+  const T v0 = widen<T>(v[OFF]);
+  const T coef = sg * v0 + w1v1 * W.iw;
+  const T head = W.wb[0] * v0 + sg * w1v1;
 #pragma unroll
-  for (int i = 1; i < S; ++i) o[OFF + i] = (v[OFF + i] + coef * W.wb[i]) * sc;
+  for (int i = 1; i < S; ++i)
+    o[OFF + i] = (widen<T>(v[OFF + i]) + coef * W.wb[i]) * sc;
   o[OFF] = head * sc;
 }
 
@@ -355,13 +402,14 @@ struct Team {
     });
   }
 
-  // o = W v (INV = false) or W^{-1} v (INV = true); o may not alias v
-  template <bool INV>
-  __device__ __forceinline__ void wapply(const Scaling& W, const Rows& v,
+  // o = W v (INV = false) or W^{-1} v (INV = true); o may not alias v,
+  // which may be held in a narrower type (a column of G)
+  template <bool INV, typename U>
+  __device__ __forceinline__ void wapply(const Scaling& W, const U (&v)[RS_],
                                          Rows& o) const {
 #pragma unroll
     for (int k = 0; k < RO; ++k)
-      o[k] = ort(k) ? v[k] * (INV ? W.wi[k] : W.w[k]) : T(0);
+      o[k] = ort(k) ? widen<T>(v[k]) * (INV ? W.wi[k] : W.w[k]) : T(0);
     blocks([&](auto J) {
       constexpr int j = decltype(J)::value;
       soc_apply<INV, SMAX, boff(j)>(W.k[j], v, o);
@@ -443,30 +491,35 @@ struct Team {
   }
 
   // ---- dense algebra on the (nr x nv) columns ---------------------------
-  __device__ __forceinline__ void matvec(const Rows (&g)[NV], const Col& x,
+  // A column array (G, or W^{-1} G) and a row vector may be held in a
+  // narrower type U than T; each entry is widened where it is used.
+  template <typename U>
+  __device__ __forceinline__ void matvec(const U (&g)[NV][RS_], const Col& x,
                                          Rows& o) const {
 #pragma unroll
     for (int q = 0; q < RS; ++q) {
       T t = T(0);
 #pragma unroll
-      for (int v = 0; v < NV; ++v) t += g[v][q] * x[v];
+      for (int v = 0; v < NV; ++v) t += widen<T>(g[v][q]) * x[v];
       o[q] = t;
     }
   }
 
-  __device__ __forceinline__ void rmatvec(const Rows (&g)[NV], const Rows& z,
-                                          Col& o) const {
+  template <typename U, typename V>
+  __device__ __forceinline__ void rmatvec(const U (&g)[NV][RS_],
+                                          const V (&z)[RS_], Col& o) const {
 #pragma unroll
     for (int v = 0; v < NV; ++v) {
       T t = T(0);
 #pragma unroll
-      for (int q = 0; q < RS; ++q) t += g[v][q] * z[q];
+      for (int q = 0; q < RS; ++q) t += widen<T>(g[v][q]) * widen<T>(z[q]);
       o[v] = t;
     }
     sum_n(o);
   }
   // L L' = A'A + jitter * mean(diag) I; also the reciprocal diagonal
-  __device__ __forceinline__ void gram_chol(const Rows (&a)[NV], T jitter,
+  template <typename U>
+  __device__ __forceinline__ void gram_chol(const U (&a)[NV][RS_], T jitter,
                                             T (&L)[NL], Col& rd) const {
 #pragma unroll
     for (int i = 0; i < NV; ++i)
@@ -474,7 +527,8 @@ struct Team {
       for (int j = 0; j <= i; ++j) {
         T t = T(0);
 #pragma unroll
-        for (int q = 0; q < RS; ++q) t += a[i][q] * a[j][q];
+        for (int q = 0; q < RS; ++q)
+          t += widen<T>(a[i][q]) * widen<T>(a[j][q]);
         L[li(i, j)] = t;
       }
     sum_n(L);
@@ -503,42 +557,97 @@ struct Team {
     }
   }
 
-  static __device__ __forceinline__ void chol_solve(const T (&L)[NL],
-                                                    const Col& rd,
-                                                    const Col& b, Col& x) {
+  // The factor as chol_solve reads it: l(i, k) below the diagonal and
+  // r(i) = 1 / L(i, i).  Held in registers (the cold start's), or once per
+  // team in shared memory with r in the diagonal's slots (the loop's: the
+  // factor is the same on every lane, and eight copies of it in registers
+  // would not leave room for a float64 iterate).  The shared copy is read
+  // through a volatile pointer, so the compiler reloads it at each use
+  // instead of holding it in registers between the two Newton solves.
+  struct RegFactor {
+    const T (&L)[NL];
+    const Col& rd;
+    __device__ __forceinline__ T l(int i, int k) const { return L[li(i, k)]; }
+    __device__ __forceinline__ T r(int i) const { return rd[i]; }
+  };
+  struct SharedFactor {
+    volatile T* p;
+    __device__ __forceinline__ T l(int i, int k) const { return p[li(i, k)]; }
+    __device__ __forceinline__ T r(int i) const { return p[li(i, i)]; }
+  };
+
+  // write the factor to the team's slot p (lane 0 writes it for the team)
+  __device__ __forceinline__ SharedFactor share(const T (&L)[NL],
+                                                const Col& rd,
+                                                volatile T* p) const {
+    __syncwarp(mask);  // every lane is done with the previous factor
+    if (lane == 0) {
+#pragma unroll
+      for (int i = 0; i < NV; ++i)
+#pragma unroll
+        for (int j = 0; j <= i; ++j)
+          p[li(i, j)] = i == j ? rd[i] : L[li(i, j)];
+    }
+    __syncwarp(mask);
+    return SharedFactor{p};
+  }
+
+  template <class F>
+  static __device__ __forceinline__ void chol_solve(const F& f, const Col& b,
+                                                    Col& x) {
     Col y;
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
       T s = b[i];
 #pragma unroll
-      for (int k = 0; k < i; ++k) s -= L[li(i, k)] * y[k];
-      y[i] = s * rd[i];
+      for (int k = 0; k < i; ++k) s -= f.l(i, k) * y[k];
+      y[i] = s * f.r(i);
     }
 #pragma unroll
     for (int i = NV - 1; i >= 0; --i) {
       T s = y[i];
 #pragma unroll
-      for (int k = i + 1; k < NV; ++k) s -= L[li(k, i)] * x[k];
-      x[i] = s * rd[i];
+      for (int k = i + 1; k < NV; ++k) s -= f.l(k, i) * x[k];
+      x[i] = s * f.r(i);
     }
   }
 
-  // one Newton solve of the scaled KKT system for right-hand side lam_ds
+  // one Newton solve of the scaled KKT system for right-hand side lam_ds.
+  // (W^{-1} G)' bz and (W^{-1} G) dx are taken a column of W^{-1} G at a
+  // time, each formed from G where it is used, in the sums' order of
+  // rmatvec and matvec: the same values as from W^{-1} G held whole (which
+  // the compiler does where G is held in T)
+  template <typename U, class F>
   __device__ __forceinline__ void newton(
-      const Rows (&gt)[NV], const T (&L)[NL], const Col& rd, const Scaling& W,
-      const Col& rx, const Rows& rz, const Rows& lam_ds, Col& dx, Rows& ds,
+      const U (&g)[NV][RS_], const F& fac, const Scaling& W, const Col& rx,
+      const Rows& rz, const Rows& lam_ds, Col& dx, Rows& ds,
       Rows& dz) const {
-    Rows t, bz;
+    Rows t, bz, col;
     wapply<false>(W, lam_ds, t);
 #pragma unroll
     for (int q = 0; q < RS; ++q) t[q] = -rz[q] - t[q];
     wapply<true>(W, t, bz);
     Col bv;
-    rmatvec(gt, bz, bv);
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      wapply<true>(W, g[v], col);
+      T a = T(0);
+#pragma unroll
+      for (int q = 0; q < RS; ++q) a += col[q] * bz[q];
+      bv[v] = a;
+    }
+    sum_n(bv);
 #pragma unroll
     for (int v = 0; v < NV; ++v) bv[v] = -rx[v] + bv[v];
-    chol_solve(L, rd, bv, dx);
-    matvec(gt, dx, t);
+    chol_solve(fac, bv, dx);
+#pragma unroll
+    for (int q = 0; q < RS; ++q) t[q] = T(0);
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      wapply<true>(W, g[v], col);
+#pragma unroll
+      for (int q = 0; q < RS; ++q) t[q] += col[q] * dx[v];
+    }
 #pragma unroll
     for (int q = 0; q < RS; ++q) t[q] -= bz[q];
     wapply<true>(W, t, dz);
@@ -549,18 +658,22 @@ struct Team {
   }
 };
 
-template <typename T, int NV, int NORT, int S1, int S2, int TEAM, bool WARM,
-          bool SKIP>
+// S: the storage type of operands and results; T: the arithmetic type
+template <typename S, typename T, int NV, int NORT, int S1, int S2, int TEAM,
+          bool WARM, bool SKIP>
 __global__ void __launch_bounds__(kThreads)
-pdip_kernel(const T* __restrict__ Gg, const T* __restrict__ hg,
-            const T* __restrict__ cg, const T* __restrict__ xw,
-            const T* __restrict__ sw, const T* __restrict__ zw,
-            const bool* __restrict__ skip, T* __restrict__ xo,
-            T* __restrict__ so, T* __restrict__ zo, int* __restrict__ it_o,
+pdip_kernel(const S* __restrict__ Gg, const S* __restrict__ hg,
+            const S* __restrict__ cg, const S* __restrict__ xw,
+            const S* __restrict__ sw, const S* __restrict__ zw,
+            const bool* __restrict__ skip, S* __restrict__ xo,
+            S* __restrict__ so, S* __restrict__ zo, int* __restrict__ it_o,
             bool* __restrict__ conv_o, int B, T tol, T jitter, T margin,
             int max_iters) {
-  typedef Team<T, NV, NORT, S1, S2, TEAM> P;
+  typedef Team<T, NV, NORT, S1, S2, TEAM> P;   // iterates in T
+  typedef Team<S, NV, NORT, S1, S2, TEAM> PS;  // the warm start, in S
   constexpr int NR = P::NR, RS = P::RS;
+  // each team's Cholesky factor of the current iterate (Team::share)
+  __shared__ T factors[kThreads / TEAM][P::NL];
   const int b = (blockIdx.x * kThreads + threadIdx.x) / TEAM;
   if (b >= B) return;  // the whole team leaves together
   P tm;
@@ -573,47 +686,59 @@ pdip_kernel(const T* __restrict__ Gg, const T* __restrict__ hg,
   // the warm x, s and z, not G, h or c (the flag is the same on every lane)
   const bool skipped = SKIP && skip[b];
 
-  typename P::Rows g[NV], h, s, z;
-  typename P::Col c, x;
+  // G, h and c as read, in S (see the header)
+  typename PS::Rows g[NV], h;
+  typename PS::Col c;
 #pragma unroll
   for (int q = 0; q < RS; ++q) {
     const bool ok = !skipped && tm.valid(q);
     const size_t r = br + (ok ? tm.row(q) : 0);
 #pragma unroll
-    for (int v = 0; v < NV; ++v) g[v][q] = ok ? Gg[r * NV + v] : T(0);
-    h[q] = ok ? hg[r] : T(0);
+    for (int v = 0; v < NV; ++v) g[v][q] = ok ? Gg[r * NV + v] : S(0);
+    h[q] = ok ? hg[r] : S(0);
   }
 #pragma unroll
-  for (int v = 0; v < NV; ++v) c[v] = skipped ? T(0) : cg[bv + v];
+  for (int v = 0; v < NV; ++v) c[v] = skipped ? S(0) : cg[bv + v];
 
+  typename P::Rows s, z;
+  typename P::Col x;
   if (WARM) {
+    PS tw;
+    tw.lane = tm.lane;
+    tw.mask = tm.mask;
+    typename PS::Rows ws, wz;
 #pragma unroll
-    for (int v = 0; v < NV; ++v) x[v] = xw[bv + v];
+    for (int v = 0; v < NV; ++v) x[v] = T(xw[bv + v]);
 #pragma unroll
     for (int q = 0; q < RS; ++q) {
       const bool ok = tm.valid(q);
       const size_t r = br + (ok ? tm.row(q) : 0);
-      s[q] = ok ? sw[r] : T(0);
-      z[q] = ok ? zw[r] : T(0);
+      ws[q] = ok ? sw[r] : S(0);
+      wz[q] = ok ? zw[r] : S(0);
     }
-    tm.add_e(s, margin);
-    tm.add_e(z, margin);
-    tm.bring2cone(s);
-    tm.bring2cone(z);
+    tw.add_e(ws, S(margin));
+    tw.add_e(wz, S(margin));
+    tw.bring2cone(ws);
+    tw.bring2cone(wz);
+#pragma unroll
+    for (int q = 0; q < RS; ++q) {
+      s[q] = T(ws[q]);
+      z[q] = T(wz[q]);
+    }
   } else {
     // least-squares start: x = (G'G)^{-1} G'h, s = G x - h, z = G (G'G)^{-1}(-c)
     T L[P::NL];
     typename P::Col rd, t, xd;
     tm.gram_chol(g, jitter, L, rd);
     tm.rmatvec(g, h, t);
-    P::chol_solve(L, rd, t, x);
+    P::chol_solve(typename P::RegFactor{L, rd}, t, x);
     tm.matvec(g, x, s);
 #pragma unroll
-    for (int q = 0; q < RS; ++q) s[q] -= h[q];
+    for (int q = 0; q < RS; ++q) s[q] -= widen<T>(h[q]);
     tm.bring2cone(s);
 #pragma unroll
-    for (int v = 0; v < NV; ++v) t[v] = -c[v];
-    P::chol_solve(L, rd, t, xd);
+    for (int v = 0; v < NV; ++v) t[v] = -widen<T>(c[v]);
+    P::chol_solve(typename P::RegFactor{L, rd}, t, xd);
     tm.matvec(g, xd, z);
     tm.bring2cone(z);
   }
@@ -635,17 +760,21 @@ pdip_kernel(const T* __restrict__ Gg, const T* __restrict__ hg,
     typename P::Col rx;
     tm.rmatvec(g, z, rx);
 #pragma unroll
-    for (int v = 0; v < NV; ++v) rx[v] += c[v];
+    for (int v = 0; v < NV; ++v) rx[v] += widen<T>(c[v]);
     tm.matvec(g, x, rz);
 #pragma unroll
-    for (int q = 0; q < RS; ++q) rz[q] += s[q] - h[q];
+    for (int q = 0; q < RS; ++q) rz[q] += s[q] - widen<T>(h[q]);
 
-    typename P::Rows gt[NV];
+    typename P::SharedFactor fac;
+    {
+      typename P::Rows gt[NV];  // W^{-1} G, for its Gram matrix
 #pragma unroll
-    for (int v = 0; v < NV; ++v) tm.template wapply<true>(W, g[v], gt[v]);
-    T L[P::NL];
-    typename P::Col rd;
-    tm.gram_chol(gt, jitter, L, rd);
+      for (int v = 0; v < NV; ++v) tm.template wapply<true>(W, g[v], gt[v]);
+      T L[P::NL];
+      typename P::Col rd;
+      tm.gram_chol(gt, jitter, L, rd);
+      fac = tm.share(L, rd, factors[threadIdx.x / TEAM]);
+    }
 
     typename P::InvPre ip;
     tm.inv_pre(lam, ip);
@@ -656,7 +785,7 @@ pdip_kernel(const T* __restrict__ Gg, const T* __restrict__ hg,
 #pragma unroll
     for (int q = 0; q < RS; ++q) t[q] = -lamlam[q];
     tm.inv_prod(lam, ip, t, lam_ds);
-    tm.newton(gt, L, rd, W, rx, rz, lam_ds, dx, ds_a, dz_a);
+    tm.newton(g, fac, W, rx, rz, lam_ds, dx, ds_a, dz_a);
     const T a_aff = vmin(tm.linesearch(s, ds_a), tm.linesearch(z, dz_a));
     T num = T(0);
 #pragma unroll
@@ -677,7 +806,7 @@ pdip_kernel(const T* __restrict__ Gg, const T* __restrict__ hg,
     tm.add_e(t, sm);
     tm.inv_prod(lam, ip, t, lam_ds);
     typename P::Rows ds, dz;
-    tm.newton(gt, L, rd, W, rx, rz, lam_ds, dx, ds, dz);
+    tm.newton(g, fac, W, rx, rz, lam_ds, dx, ds, dz);
     const T a = vmin(T(1), T(0.99) * vmin(tm.linesearch(s, ds),
                                           tm.linesearch(z, dz)));
 
@@ -707,15 +836,16 @@ pdip_kernel(const T* __restrict__ Gg, const T* __restrict__ hg,
     ++iters;
   }
 
+  // the flag from the final iterate in T; x, s and z rounded to S
   const T mu_f = tm.dot(s, z) * inv_deg;
 #pragma unroll
   for (int v = 0; v < NV; ++v)
-    if (v % TEAM == tm.lane) xo[bv + v] = x[v];
+    if (v % TEAM == tm.lane) xo[bv + v] = S(x[v]);
 #pragma unroll
   for (int q = 0; q < RS; ++q)
     if (tm.valid(q)) {
-      so[br + tm.row(q)] = s[q];
-      zo[br + tm.row(q)] = z[q];
+      so[br + tm.row(q)] = S(s[q]);
+      zo[br + tm.row(q)] = S(z[q]);
     }
   if (tm.lane == 0) {
     it_o[b] = iters;
@@ -723,7 +853,10 @@ pdip_kernel(const T* __restrict__ Gg, const T* __restrict__ hg,
   }
 }
 
-typedef DCOL_T Real;
+typedef DCOL_T Real;  // storage
+typedef DCOL_A Acc;   // arithmetic
+static_assert(sizeof(Acc) >= sizeof(Real),
+              "the arithmetic type is at least as wide as the storage type");
 constexpr int kNV = DCOL_NV, kNORT = DCOL_NORT, kS1 = DCOL_S1, kS2 = DCOL_S2;
 constexpr int kTeam = DCOL_TEAM;
 
@@ -734,25 +867,27 @@ void launch(const void* G, const void* h, const void* c, const void* xw,
             double margin, int max_iters, cudaStream_t stream) {
   const long long threads = (long long)B * kTeam;
   const int blocks = (int)((threads + kThreads - 1) / kThreads);
-  pdip_kernel<Real, kNV, kNORT, kS1, kS2, kTeam, WARM, SKIP>
+  pdip_kernel<Real, Acc, kNV, kNORT, kS1, kS2, kTeam, WARM, SKIP>
       <<<blocks, kThreads, 0, stream>>>(
           (const Real*)G, (const Real*)h, (const Real*)c, (const Real*)xw,
           (const Real*)sw, (const Real*)zw, (const bool*)skip, (Real*)x,
-          (Real*)s, (Real*)z, (int*)iters, (bool*)conv, B, (Real)tol,
-          (Real)jitter, (Real)margin, max_iters);
+          (Real*)s, (Real*)z, (int*)iters, (bool*)conv, B, (Acc)tol,
+          (Acc)jitter, (Acc)margin, max_iters);
 }
 
 }  // namespace
 
 extern "C" {
 
-// The layout this library was built for: {sizeof(T), NV, NORT, S1, S2}.
+// What this library was built for: {sizeof(storage type), sizeof(arithmetic
+// type), NV, NORT, S1, S2}.
 int dcol_pdip_layout(int* out) {
   out[0] = (int)sizeof(Real);
-  out[1] = kNV;
-  out[2] = kNORT;
-  out[3] = kS1;
-  out[4] = kS2;
+  out[1] = (int)sizeof(Acc);
+  out[2] = kNV;
+  out[3] = kNORT;
+  out[4] = kS1;
+  out[5] = kS2;
   return 0;
 }
 

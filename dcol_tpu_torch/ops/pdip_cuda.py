@@ -4,8 +4,10 @@ Counterpart of ``dcol_tpu/ops/pdip_pallas.py::solve_socp_pallas`` with the
 same (B, ...) convention as :func:`dcol_tpu_torch.ops.pdip.solve_socp`, its
 plain PyTorch version.
 
-The kernel is specialised per (dtype, nv, cone layout, team size): a team of
-``team_lanes(nr, dtype)`` lanes solves each problem.  Each specialisation is
+The kernel is specialised per (dtype, arithmetic type, nv, cone layout, team
+size): it reads and writes the caller's dtype and iterates in
+``arith_dtype(dtype, lay)``, and a team of ``team_lanes(nr, arithmetic
+type)`` lanes solves each problem.  Each specialisation is
 compiled at first use with ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface (``-D`` defines pick it), cached under
 ``dcol_tpu_torch/build/`` keyed by a hash of the source and the flags, and
@@ -50,18 +52,30 @@ _COUNT_LOCK = threading.Lock()
 _CTYPE = {torch.float32: "float", torch.float64: "double"}
 
 
-def team_lanes(nr: int, dtype) -> int:
-    """Lanes of the team that solves one problem of ``nr`` rows: 4 in
-    float32, 8 in float64, never more than the power of two at or above
-    ``nr`` and never fewer than 2.  Measured with ``roofline ab``
-    (PERF.md): float32 teams of 2 are 13% faster on the main path's
-    launches, but on the quadrotor's obstacle group (9, 10) one warm
-    problem, repeated in every scenario, then ended just above tol where
-    the plain version converged, which a converged-count rule failed;
-    teams of 2 are yet to be judged by the per-lane rule that replaced it
-    (``tools/hard_lanes.py::judge_lanes``).  A wider float64 team holds
-    fewer orthant rows a lane and spills less."""
-    cap = 4 if dtype == torch.float32 else 8
+def arith_dtype(dtype, lay: ConeLayout):
+    """The type the kernel iterates in for problems of ``dtype`` and cone
+    layout ``lay``: float64 for a float32 problem with a second-order-cone
+    block, otherwise ``dtype`` itself.  Near contact such a float32
+    problem's scaled Newton system is ill-conditioned near tol: iterated in
+    float32, the kernel stopped far from tol on a few of them in millions,
+    on lanes that rounding picks (PERF.md §6); iterated in float64 from
+    the same float32 operands, every one measured converges.  A purely orthant layout (the
+    piano's) is iterated in float32, as before."""
+    if dtype == torch.float32 and lay.s1 + lay.s2 > 0:
+        return torch.float64
+    return dtype
+
+
+def team_lanes(nr: int, arith) -> int:
+    """Lanes of the team that solves one problem of ``nr`` rows iterated in
+    the type ``arith`` (:func:`arith_dtype`): 4 in float32, 8 in float64,
+    never more than the power of two at or above ``nr`` and never fewer
+    than 2.  A float64 iterate holds twice the registers of a float32 one,
+    and a wider team holds fewer orthant rows a lane.  Float32 teams of 2
+    were 13% faster than 4 on the main path's launches (PERF.md §6) but
+    are not judged by the per-lane rule; no layout with an SOC block is
+    iterated in float32 any more."""
+    cap = 4 if arith == torch.float32 else 8
     team = 2
     while team < min(nr, cap):
         team *= 2
@@ -71,25 +85,32 @@ def team_lanes(nr: int, dtype) -> int:
 def _key(dtype, nv: int, lay: ConeLayout) -> Tuple:
     if dtype not in _CTYPE:
         raise TypeError(f"PDIP kernel supports float32/float64, got {dtype}")
-    return ("pdip", dtype, nv, lay.n_ort, lay.s1, lay.s2,
-            team_lanes(lay.nr, dtype))
+    arith = arith_dtype(dtype, lay)
+    return ("pdip", dtype, arith, nv, lay.n_ort, lay.s1, lay.s2,
+            team_lanes(lay.nr, arith))
 
 
 def build(dtype, nv: int, lay: ConeLayout) -> Build:
-    """Compile (or find in the cache) the library for one specialisation,
-    with a team of ``team_lanes(lay.nr, dtype)`` lanes."""
+    """Compile (or find in the cache) the library for one specialisation:
+    storage ``dtype``, arithmetic ``arith_dtype(dtype, lay)``, a team of
+    ``team_lanes`` lanes.  Both types are in the library's name and
+    flags, so the cache never hands back another type's library."""
     key = _key(dtype, nv, lay)
-    team = key[-1]
-    t = _CTYPE[dtype]
+    arith, team = key[2], key[-1]
+    t, a = _CTYPE[dtype], _CTYPE[arith]
     return nvcc_build.build(
-        key, SOURCE, f"pdip_{t}_{nv}_{lay.n_ort}_{lay.s1}_{lay.s2}_t{team}",
-        [f"-DDCOL_T={t}", f"-DDCOL_NV={nv}", f"-DDCOL_NORT={lay.n_ort}",
-         f"-DDCOL_S1={lay.s1}", f"-DDCOL_S2={lay.s2}", f"-DDCOL_TEAM={team}"])
+        key, SOURCE,
+        f"pdip_{t}_{a}_{nv}_{lay.n_ort}_{lay.s1}_{lay.s2}_t{team}",
+        [f"-DDCOL_T={t}", f"-DDCOL_A={a}", f"-DDCOL_NV={nv}",
+         f"-DDCOL_NORT={lay.n_ort}", f"-DDCOL_S1={lay.s1}",
+         f"-DDCOL_S2={lay.s2}", f"-DDCOL_TEAM={team}"])
 
 
 def _lib(dtype, nv: int, lay: ConeLayout) -> ctypes.CDLL:
-    want = (torch.finfo(dtype).bits // 8, nv, lay.n_ort, lay.s1, lay.s2)
-    team = team_lanes(lay.nr, dtype)
+    arith = arith_dtype(dtype, lay)
+    want = (torch.finfo(dtype).bits // 8, torch.finfo(arith).bits // 8, nv,
+            lay.n_ort, lay.s1, lay.s2)
+    team = team_lanes(lay.nr, arith)
 
     def bind(lib: ctypes.CDLL) -> None:
         lib.dcol_pdip_layout.argtypes = [ctypes.POINTER(ctypes.c_int)]
@@ -101,7 +122,7 @@ def _lib(dtype, nv: int, lay: ConeLayout) -> ctypes.CDLL:
                                       ctypes.c_double, ctypes.c_double,
                                       ctypes.c_int, ctypes.c_void_p])
         lib.dcol_pdip_solve.restype = ctypes.c_int
-        got = (ctypes.c_int * 5)()
+        got = (ctypes.c_int * 6)()
         lib.dcol_pdip_layout(got)
         if tuple(got) != want or lib.dcol_pdip_team() != team:
             raise RuntimeError(f"library {lib._name} was built for "
@@ -165,7 +186,7 @@ def solve_socp_cuda(c, G, h, lay: ConeLayout, *, tol: float = 1e-6,
     if rc != 0:
         raise RuntimeError(f"PDIP kernel launch failed: cudaError {rc} "
                            f"(layout nv={nv}, {lay}, team "
-                           f"{team_lanes(nr, dt)}, B={B})")
+                           f"{_key(dt, nv, lay)[-1]}, B={B})")
     start = ("cold" if warm is None else
              "warm" if skip is None else "warm+skip")
     with _COUNT_LOCK:

@@ -1,5 +1,6 @@
 """Hard lanes of the PDIP kernel on the card: near-contact problems, where
-float32 rounding decides whether a lane converges.
+float32 rounding decides whether a lane converges (which is why the kernel
+iterates float32 problems with a second-order-cone block in float64).
 
     python -m dcol_tpu_torch.tools.hard_lanes [--capture DIR]
     python -m dcol_tpu_torch.tools.hard_lanes --system SYSTEM
@@ -7,7 +8,8 @@ float32 rounding decides whether a lane converges.
 
 Without ``--system``, ``--dtype`` or ``--seeds``, three
 measurements, each of the kernel against its plain PyTorch version on the
-same card, judged lane by lane by :func:`judge`:
+same card, judged lane by lane by :func:`judge` (a float32 batch the
+kernel iterates in float64 also against plain in float64):
 
 1. the near-contact fixture ``tests/torch_fixtures/pdip_near_contact_f32.npz``
    (a cold batch of the f32 quadrotor's obstacle group (1, 7) at the solved
@@ -23,8 +25,9 @@ same card, judged lane by lane by :func:`judge`:
    far in the kernel only to ``DIR`` (:func:`capture`);
 3. the captured lanes ``tests/torch_fixtures/pdip_hard_lane_*.npz``: the
    kernel on each, alone and in its warp, judged by the rule; and the same
-   on the open lanes ``pdip_open_lane_*.npz``, lanes this kernel is known
-   to stop far on (ROADMAP Queue C), reported and not gated.
+   on the open lanes ``pdip_open_lane_*.npz`` (none at present), lanes the
+   kernel is known to stop far on (ROADMAP Queue C), reported and not
+   gated.
 
 With any of them, a run over seeds (:func:`run_seeds`): at each seed one
 ``solve_batch`` of the system's ``perturb_scenarios(n, seed,
@@ -39,7 +42,8 @@ To measure another checkout's kernel (an unpacked ``git archive`` of the
 parent, say), run this file from that checkout's root with it first on the
 path, ``PYTHONPATH=. python <this checkout>/dcol_tpu_torch/tools/hard_lanes.py``:
 the fixtures are this checkout's, the batches come from that checkout's own
-solve.  Needs a CUDA device and raises without one; the record goes to
+solve (that checkout's wrapper must have ``arith_dtype``).  Needs a CUDA
+device and raises without one; the record goes to
 ``dcol_tpu_torch/build/hard_lanes.json`` (a run over seeds:
 ``hard_lanes_<system>_<dtype>.json``).
 """
@@ -188,9 +192,11 @@ def judge_lanes(kernel: Dict, plain: Dict, lay, problems, tol: float,
     return out
 
 
-def judge_f64(kernel: Dict, plain: Dict, lay, problems, tol: float) -> Dict:
-    """The rule of a float64 kernel against its plain version, on
-    :func:`lanes_of` one batch ``problems`` = (c, G, h).
+def judge_f64(kernel: Dict, plain: Dict, lay, problems, tol: float,
+              skip: Optional[torch.Tensor] = None) -> Dict:
+    """The rule of a kernel that iterates in float64 against its plain
+    version in float64, on :func:`lanes_of` one batch ``problems`` = (c, G,
+    h); ``skip`` marks lanes neither version solved, which are not judged.
 
     First the count rule: the kernel converges no fewer lanes than plain,
     COUNT_SLACK of the batch slack (``count_short`` if it does).  Then the
@@ -203,12 +209,15 @@ def judge_f64(kernel: Dict, plain: Dict, lay, problems, tol: float) -> Dict:
     from dcol_tpu_torch.ops.pdip import solve_socp
 
     k, p = ({n: t.cpu() for n, t in d.items()} for d in (kernel, plain))
-    B = len(k["converged"])
-    n_k, n_p = int(k["converged"].sum()), int(p["converged"].sum())
+    live = (torch.ones_like(k["converged"]) if skip is None
+            else ~skip.cpu().expand(k["converged"].shape))
+    B = int(live.sum())
+    n_k = int((k["converged"] & live).sum())
+    n_p = int((p["converged"] & live).sum())
     bd = BORDER * tol
     near_k, near_p = k["mu"] < bd, p["mu"] < bd  # a NaN mu is far
-    far = (((k["converged"] != p["converged"]) & ~(near_k & near_p))
-           | (near_p & ~near_k))
+    far = live & (((k["converged"] != p["converged"]) & ~(near_k & near_p))
+                  | (near_p & ~near_k))
     idx = far.nonzero()[:, 0]
     out = {"disputed": len(idx), "count_short": n_k < n_p - COUNT_SLACK * B,
            "lanes": [], "failing": [], "kernel_only_far": [],
@@ -243,20 +252,78 @@ def judge_f64(kernel: Dict, plain: Dict, lay, problems, tol: float) -> Dict:
     return out
 
 
-def judge(kernel: Dict, plain: Dict, lay, problems, tol: float,
-          skip: Optional[torch.Tensor] = None) -> Dict:
-    """The kernel against its plain version on one batch, by the rule of
-    its dtype: :func:`judge_lanes` in float32 (``count_short`` is then
-    False: no count is a rule there), :func:`judge_f64` in float64, where
-    ``skip``'s lanes are held bitwise elsewhere and equal in both."""
-    if problems[0].dtype == torch.float32:
-        return dict(judge_lanes(kernel, plain, lay, problems, tol, skip=skip),
-                    count_short=False)
-    return judge_f64(kernel, plain, lay, problems, tol)
+def iterates_in_f64(dtype, lay) -> bool:
+    """Whether the kernel iterates a ``dtype`` batch of layout ``lay`` in
+    float64 from float32 operands (``pdip_cuda.arith_dtype``)."""
+    from dcol_tpu_torch.ops import pdip_cuda
+
+    return pdip_cuda.arith_dtype(dtype, lay) != dtype
+
+
+def plain_f64(problems, lay, kw: Dict, warm=None,
+              skip: Optional[torch.Tensor] = None) -> Dict:
+    """:func:`lanes_of` the plain version run in float64 on the inputs
+    widened to float64 (``problems`` = (c, G, h), the warm start if any),
+    with the batch's settings ``kw``: what the kernel computes on a float32
+    batch it iterates in float64, but for where the warm start is
+    rounded."""
+    from dcol_tpu_torch.ops.pdip import solve_socp
+
+    wide = lambda arrs: tuple(a.double() for a in arrs)
+    return lanes_of(solve_socp(*wide(problems), lay,
+                               warm=None if warm is None else wide(warm),
+                               skip=skip, **kw), lay)
+
+
+def judge(kernel: Dict, plain: Dict, lay, problems, kw: Dict, warm=None,
+          skip: Optional[torch.Tensor] = None,
+          at: Optional[int] = None) -> Dict:
+    """The kernel against its plain version on one batch ``problems`` =
+    (c, G, h), solved by both with the settings ``kw`` and the warm start
+    ``warm`` if any, by the rule of what the kernel computes; ``skip``'s
+    lanes are not judged (they are held bitwise elsewhere).  With ``at``,
+    only that lane of the batch is judged.
+
+    - float64: :func:`judge_f64` against plain;
+    - float32 iterated in float32 (no SOC block): :func:`judge_lanes`
+      against plain (``count_short`` is then False: no count is a rule
+      there);
+    - float32 iterated in float64 (an SOC block, :func:`iterates_in_f64`):
+      both.  :func:`judge_lanes` against plain float32 ties the kernel to
+      the JAX package's float32 semantics; :func:`judge_f64` against plain
+      in float64 on the widened inputs (:func:`plain_f64`, run here on the
+      whole batch) holds it to what it now computes.  The record is
+      judge_lanes', with the f64 rule's record under ``f64``, its rows
+      (tagged ``rule``) added to ``lanes``, ``failing`` and
+      ``kernel_only_far`` the union of both rules', ``count_short`` the f64
+      rule's and ``conv_plain64`` plain float64's converged count."""
+    tol = kw["tol"]
+    p64 = (plain_f64(problems, lay, kw, warm=warm, skip=skip)
+           if iterates_in_f64(problems[0].dtype, lay) else None)
+    if at is not None:
+        one = lambda d: None if d is None else {n: t[at:at + 1]
+                                                for n, t in d.items()}
+        kernel, plain, p64 = one(kernel), one(plain), one(p64)
+        problems = tuple(a[at:at + 1] for a in problems)
+        skip = None if skip is None else skip[at:at + 1]
+    if problems[0].dtype != torch.float32:
+        return judge_f64(kernel, plain, lay, problems, tol, skip=skip)
+    v = dict(judge_lanes(kernel, plain, lay, problems, tol, skip=skip),
+             count_short=False)
+    if p64 is None:
+        return v
+    w = judge_f64(kernel, p64, lay, problems, tol, skip=skip)
+    union = lambda key: sorted(set(v[key]) | set(w[key]))
+    return dict(v, f64=w, failing=union("failing"),
+                kernel_only_far=union("kernel_only_far"),
+                count_short=w["count_short"],
+                conv_plain64=int(p64["converged"].sum()),
+                lanes=v["lanes"] + [dict(r, rule="f64") for r in w["lanes"]])
 
 
 def describe_lane(row) -> str:
-    return (f"lane {row['lane']}: mu kernel {row['mu_kernel']:.3e}, plain "
+    return (("f64 rule " if row.get("rule") == "f64" else "")
+            + f"lane {row['lane']}: mu kernel {row['mu_kernel']:.3e}, plain "
             f"{row['mu_plain']:.3e}; |alpha - f64| kernel "
             f"{row['err_kernel_f64']:.3e}, plain {row['err_plain_f64']:.3e}"
             + (f"; fails: {', '.join(row['fails'])}" if row["fails"] else ""))
@@ -416,19 +483,24 @@ def outputs(solve, batches) -> List[Dict]:
 
 def compare(batches, plain, kernel) -> Dict:
     """Kernel against plain per batch: converged counts, the lanes that end
-    far from tol in one version only, and the verdict of the batch's dtype
-    (:func:`judge`)."""
+    far from tol in one version only, and the verdict of what the kernel
+    computes (:func:`judge`, which also holds a float32 batch the kernel
+    iterates in float64 to plain in float64)."""
     rows, tot = [], {"problems": 0, "conv_kernel": 0, "conv_plain": 0,
                      "disputed": 0, "failing": 0, "kernel_only_far": 0,
-                     "plain_only_far": 0, "count_short": 0}
+                     "plain_only_far": 0, "count_short": 0,
+                     "f64_disputed": 0, "f64_failing": 0}
     for b, p, k in zip(batches, plain, kernel):
-        v = judge(k, p, b["lay"], (b["c"], b["G"], b["h"]), b["kw"]["tol"])
+        v = judge(k, p, b["lay"], (b["c"], b["G"], b["h"]), b["kw"])
         r = {"batch": b["name"], "B": b["c"].shape[0],
              "dtype": str(b["c"].dtype)[6:],
              "conv_kernel": int(k["converged"].sum()),
              "conv_plain": int(p["converged"].sum()),
              "max_abs_err_alpha": float((k["alpha"] - p["alpha"]).abs()
                                         .max()), **v}
+        if "f64" in v:
+            tot["f64_disputed"] += v["f64"]["disputed"]
+            tot["f64_failing"] += len(v["f64"]["failing"])
         rows.append(r)
         for key in ("conv_kernel", "conv_plain", "disputed", "count_short"):
             tot[key] += r[key]
@@ -444,7 +516,7 @@ def verdict_failures(tot: Dict) -> List[str]:
     return [f"{tot[k]} {what}" for k, what in (
         ("failing", "lanes fail the rule"),
         ("kernel_only_far", "lanes far from tol in the kernel only"),
-        ("count_short", "f64 batches converge fewer lanes than plain"))
+        ("count_short", "batches converge fewer lanes than plain in f64"))
         if tot[k]]
 
 
@@ -453,8 +525,10 @@ def describe_totals(tot: Dict) -> str:
             f"{tot['conv_kernel']:,}, plain {tot['conv_plain']:,}; far from "
             f"tol in the kernel only {tot['kernel_only_far']}, in plain only "
             f"{tot['plain_only_far']}; the rule: {tot['disputed']} disputed, "
-            f"{tot['failing']} failing, {tot['count_short']} f64 batches "
-            f"short of plain's count")
+            f"{tot['failing']} failing (the f64 rule on batches iterated in "
+            f"f64: {tot['f64_disputed']} disputed, {tot['f64_failing']} "
+            f"failing), {tot['count_short']} batches short of plain's "
+            f"count")
 
 
 def capture(batches, verdicts, directory, solve) -> List[Dict]:
@@ -464,17 +538,16 @@ def capture(batches, verdicts, directory, solve) -> List[Dict]:
     there, its batch's name, layout and settings, whether the kernel
     (``solve``) still stops far on it alone, and each version's mu and
     alpha with the f64 solve's alpha."""
-    from dcol_tpu_torch.ops.pdip_cuda import team_lanes
+    from dcol_tpu_torch.ops import pdip_cuda
 
     os.makedirs(directory, exist_ok=True)
     saved = []
     for b, v in zip(batches, verdicts):
         lay, kw, B = b["lay"], b["kw"], b["c"].shape[0]
-        per_warp = WARP // team_lanes(lay.nr, b["c"].dtype)
-        for row in v["lanes"]:
-            lane = row["lane"]
-            if lane not in v["kernel_only_far"]:
-                continue
+        per_warp = WARP // pdip_cuda.team_lanes(
+            lay.nr, pdip_cuda.arith_dtype(b["c"].dtype, lay))
+        for lane in v["kernel_only_far"]:
+            row = next(r for r in v["lanes"] if r["lane"] == lane)
             lo = lane - lane % per_warp
             warp = tuple(a[lo:min(lo + per_warp, B)].contiguous()
                          for a in (b["c"], b["G"], b["h"]))
@@ -522,7 +595,8 @@ def load_lane(path, device) -> Dict:
 
 def judge_captured(solve, lane: Dict) -> Dict:
     """``solve`` against the plain version on a captured lane, alone (B = 1)
-    and in its warp, each judged by the rule on that lane:
+    and in its warp, each judged on that lane by :func:`judge` (a lane the
+    kernel iterates in float64 also against plain in float64):
     {"alone": verdict, "in its warp": verdict}."""
     from dcol_tpu_torch.ops.pdip import solve_socp
 
@@ -532,12 +606,9 @@ def judge_captured(solve, lane: Dict) -> Dict:
     for where, prob, j in (
             ("alone", tuple(a[i:i + 1].contiguous() for a in (c, G, h)), 0),
             ("in its warp", (c, G, h), i)):
-        sel = slice(j, j + 1)
         got, ref = (lanes_of(s(*prob, lay, **kw), lay)
                     for s in (solve, solve_socp))
-        out[where] = judge_lanes({n: t[sel] for n, t in got.items()},
-                                 {n: t[sel] for n, t in ref.items()}, lay,
-                                 tuple(a[sel] for a in prob), kw["tol"])
+        out[where] = judge(got, ref, lay, prob, kw, at=j)
         out[where].update(mu=float(got["mu"][j]),
                           alpha=float(got["alpha"][j]))
     return out

@@ -26,16 +26,20 @@ Port of ``tools/roofline.py``.  Four commands:
    launch: the kernel time; the work, sum over problems of init + iters x
    per_iter from the kernel's own iteration counts; the bytes read once and
    written once (``pdip_bytes``, a skipped problem at its own count); the
-   bound,
-   the larger of work at the published peak and bytes at the published
-   memory rate (``bound_seconds``); the share of it; and the share of the
-   measured float32 peak.
+   bound, the larger of work at the published float32 peak and bytes at
+   the published memory rate (``bound_seconds``), the function's own type;
+   the share of it; beside it the kernel's ceiling, the same work at the
+   peak of the type the kernel iterates in (float64 for these layouts,
+   ``arith_of``); and the share of the measured float32 peak.
 4. ``ab`` (card): the same launches, saved once, through another
    checkout's kernel (the parent commit's, unpacked) and this one's, in
    turns parent, this, this, parent, one process each; in each process
    also the main path, one batch-128 f32 quadrotor ``solve_batch`` with
    the device time of each of its PDIP launches beside their bound
-   (``main_path_pdip``).
+   (``main_path_pdip``); and, on the launches of the specialisations a
+   change may leave as they were (``bits_entries``: the float32 piano, the
+   float64 piano and cone), whether the two kernels' outputs agree bit for
+   bit.
 
 The TPU tool's count of vector-register instructions has no counterpart
 here: it measured the TPU's (8, 128) register layout.
@@ -447,6 +451,46 @@ def kernel_shapes(device) -> Tuple[List[Dict], Dict]:
     return entries, kw
 
 
+# the systems and dtypes whose kernel specialisations ``ab`` holds bit for
+# bit against the other checkout's: the float32 piano (no SOC block,
+# iterated in float32) and the float64 piano and cone
+BITS_SYSTEMS = (("piano_mover", torch.float32), ("piano_mover", torch.float64),
+                ("coneThroughWall", torch.float64))
+BITS_SCENARIOS = 32
+
+
+def bits_entries(device) -> List[Dict]:
+    """The launches ``ab`` compares bit for bit: for each of BITS_SYSTEMS,
+    the near-contact batches (``hard_lanes.near_contact_batches``) of
+    BITS_SCENARIOS scenarios at their initial rollout, each cold, warm (G, h
+    x 1.001 from the plain version's cold optimum) and warm with every other
+    problem skipped."""
+    from dcol_tpu_torch.ops.pdip import solve_socp
+    from dcol_tpu_torch.solver import altro
+    from dcol_tpu_torch.tools import hard_lanes
+
+    out = []
+    for system, dtype in BITS_SYSTEMS:
+        sys_, pb, xb, ub, _ = hard_lanes.system_problem(
+            system, dtype, device, seed=0, n=BITS_SCENARIOS)
+        X = altro.initial_rollout(sys_, pb, xb[:, 0], ub)
+        for b in hard_lanes.near_contact_batches(sys_, pb, xb, X):
+            c, G, h, kw = b["c"], b["G"], b["h"], b["kw"]
+            ref = solve_socp(c, G, h, b["lay"], **kw)
+            warm = (ref.x, ref.s, ref.z)
+            G2, h2 = G * (1 + 1e-3), h * (1 + 1e-3)
+            skip = torch.arange(c.shape[0], device=device) % 2 == 0
+            e = dict(nv=b["nv"], lay=b["lay"], kw=kw)
+            name = f"{system} {str(dtype)[6:]} {b['name']}"
+            out += [dict(e, name=name + " cold", c=c, G=G, h=h, warm=None,
+                         skip=None),
+                    dict(e, name=name + " warm", c=c, G=G2, h=h2, warm=warm,
+                         skip=None),
+                    dict(e, name=name + " warm+skip", c=c, G=G2, h=h2,
+                         warm=warm, skip=skip)]
+    return out
+
+
 def time_launch(fn, reps: int = KERNEL_REPS) -> Tuple[float, object]:
     """Mean device ms of fn() over ``reps`` launches (CUDA events, after
     one warm-up launch) and the warm-up's result."""
@@ -469,11 +513,32 @@ def start_of(warm, skip) -> str:
     return "cold" if warm is None else "warm" if skip is None else "warm+skip"
 
 
+def arith_of(dtype, lay):
+    """The type the PDIP kernel of the ``dcol_tpu_torch`` first on the path
+    iterates a ``dtype`` launch of layout ``lay`` in
+    (``pdip_cuda.arith_dtype``)."""
+    from dcol_tpu_torch.ops import pdip_cuda
+
+    # ``ab`` may time a checkout whose kernel predates arith_dtype and
+    # iterates in its operands' type; drop this fallback once no checkout
+    # compared against lacks it
+    return getattr(pdip_cuda, "arith_dtype", lambda dt, _: dt)(dtype, lay)
+
+
 def account(nv: int, lay, start: str, B: int, ms: float, iters_sum: float,
-            n_skip: int = 0, peak_flops: Optional[float] = None) -> Dict:
-    """Work, bytes, bound and shares of one f32 launch of B problems of
+            n_skip: int = 0, peak_flops: Optional[float] = None,
+            arith=None) -> Dict:
+    """Work, bytes, bound and shares of one launch of B float32 problems of
     layout (nv, lay), ``n_skip`` of them skipped, that took ``ms`` and ran
-    ``iters_sum`` iterations over its problems."""
+    ``iters_sum`` iterations over its problems.
+
+    The bound (``bound_ms``) is the function's: its operations at the
+    float32 peak and its bytes in float32, the type of its operands, its
+    outputs, its plain version and the TPU kernel it replaces.  Beside it,
+    ``arith_bound_ms`` is the kernel's own ceiling: the same operations at
+    the peak of ``arith``, the type the kernel iterates in (default
+    :func:`arith_of`: float64 for a layout with an SOC block), and the
+    same bytes."""
     f32 = torch.float32
     warm, skip = start != "cold", start == "warm+skip"
     key = (nv, lay, warm)
@@ -483,32 +548,39 @@ def account(nv: int, lay, start: str, B: int, ms: float, iters_sum: float,
     flops = B * init + per_iter * iters_sum
     nbytes = ((B - n_skip) * pdip_bytes(nv, lay, f32, warm, skip)
               + n_skip * pdip_bytes(nv, lay, f32, skipped=True))
+    if arith is None:
+        arith = arith_of(f32, lay)
     bound, by = bound_seconds(flops, nbytes, f32)
+    ceiling, _ = bound_seconds(flops, nbytes, arith)
     row = {"nv": nv, "layout": [lay.n_ort, lay.s1, lay.s2], "start": start,
            "B": B, "ms": ms, "mean_iters": iters_sum / B, "skipped": n_skip,
            "flops": flops, "bytes": nbytes, "bound_ms": 1e3 * bound,
-           "bound_by": by, "of_bound": 1e3 * bound / ms}
+           "bound_by": by, "of_bound": 1e3 * bound / ms,
+           "arith": str(arith)[6:], "arith_bound_ms": 1e3 * ceiling,
+           "of_arith_bound": 1e3 * ceiling / ms}
     if peak_flops:
         row["of_peak"] = flops / (ms * 1e-3 * peak_flops)
     return row
 
 
 def account_entry(e: Dict, ms: float, iters_sum: float,
-                  peak_flops: Optional[float] = None) -> Dict:
-    """``account`` of one launch of a ``kernel_shapes`` entry."""
+                  peak_flops: Optional[float] = None, arith=None) -> Dict:
+    """``account`` of one launch of a ``kernel_shapes`` entry (float32)."""
     skip = e["skip"]
     return dict(account(e["nv"], e["lay"], start_of(e["warm"], skip),
                         e["c"].shape[0], ms, iters_sum,
-                        0 if skip is None else int(skip.sum()), peak_flops),
+                        0 if skip is None else int(skip.sum()), peak_flops,
+                        arith=arith),
                 shape=e["shape"], obstacles=e["obstacles"])
 
 
 def shape_totals(rows: List[Dict]) -> Dict:
-    """Sums over a shape's launches: ms, FLOPs, bytes and bound ms (the sum
-    of the per-launch bounds)."""
+    """Sums over a shape's launches: ms, FLOPs, bytes, bound ms and the
+    kernel's ceiling ms (sums of the per-launch ones)."""
     tot = {k: sum(r[k] for r in rows)
-           for k in ("ms", "flops", "bytes", "bound_ms")}
+           for k in ("ms", "flops", "bytes", "bound_ms", "arith_bound_ms")}
     tot["of_bound"] = tot["bound_ms"] / tot["ms"]
+    tot["of_arith_bound"] = tot["arith_bound_ms"] / tot["ms"]
     by = {r["bound_by"] for r in rows}
     tot["bound_by"] = by.pop() if len(by) == 1 else "mixed"
     return tot
@@ -542,7 +614,8 @@ def kernel(peak_flops: Optional[float] = None, device="cuda",
                 f"{row['mean_iters']:.3f}, {row['flops'] / 1e6:.1f} MFLOP, "
                 f"{row['bytes'] / 1e6:.2f} MB, bound "
                 f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}), "
-                f"{100 * row['of_bound']:.2f}% of bound, "
+                f"{100 * row['of_bound']:.2f}% of bound, kernel's ceiling "
+                f"({row['arith']}) {row['arith_bound_ms'] * 1e3:.2f} us, "
                 f"{100 * row['of_peak']:.2f}% of the measured peak")
         tot = shape_totals(rows)
         tot["of_peak"] = tot["flops"] / (tot["ms"] * 1e-3 * peak_flops)
@@ -551,7 +624,8 @@ def kernel(peak_flops: Optional[float] = None, device="cuda",
         out(f"{shape} ({what}), {len(rows)} launches: {tot['ms']:.4f} ms, "
             f"{tot['flops'] / 1e6:.1f} MFLOP, {tot['bytes'] / 1e6:.2f} MB, "
             f"bound {tot['bound_ms'] * 1e3:.2f} us ({tot['bound_by']}), "
-            f"{100 * tot['of_bound']:.2f}% of bound, "
+            f"{100 * tot['of_bound']:.2f}% of bound, kernel's ceiling "
+            f"{tot['arith_bound_ms'] * 1e3:.2f} us, "
             f"{100 * tot['of_peak']:.2f}% of the measured f32 peak "
             f"{peak_flops / 1e12:.2f} TFLOP/s")
     return res
@@ -622,13 +696,15 @@ def main_path_pdip(device="cuda") -> Dict:
     finally:
         pdip_cuda._lib, base.solve_socp_cuda = lib, solve
     by = {}
-    keys = ("launches", "ms", "bound_ms", "skipped", "problems", "iters")
+    keys = ("launches", "ms", "bound_ms", "arith_bound_ms", "skipped",
+            "problems", "iters")
     for start, B, nv, lay, (t0, t1), iters, n_skip in calls:
         row = account(nv, lay, start, B, t0.elapsed_time(t1), float(iters),
                       int(n_skip))
         sums = by.setdefault((start, B), dict.fromkeys(keys, 0))
         for k, v in zip(keys, (1, row["ms"], row["bound_ms"],
-                               row["skipped"], B, float(iters))):
+                               row["arith_bound_ms"], row["skipped"], B,
+                               float(iters))):
             sums[k] += v
     rows = [dict(v, start=k[0], B=k[1]) for k, v in sorted(by.items())]
     return {"wall_s": wall, "converged": int(st.converged.sum()),
@@ -638,10 +714,11 @@ def main_path_pdip(device="cuda") -> Dict:
 
 # Run in a subprocess from the root of a checkout (this one or another
 # commit's): times that checkout's PDIP kernel on the saved launches and on
-# the main path, with this file's helpers, loaded by path so that the
-# package they drive is the checkout's.
+# the main path, and hashes its outputs on the saved ``bits`` launches, with
+# this file's helpers, loaded by path so that the package they drive is the
+# checkout's.
 _TIMER = r"""
-import importlib.util, json, sys
+import hashlib, importlib.util, json, sys
 sys.path.insert(0, sys.argv[1])
 import torch
 spec = importlib.util.spec_from_file_location("roofline_timer", sys.argv[3])
@@ -651,22 +728,35 @@ from dcol_tpu_torch.ops import nvcc_build, pdip_cuda
 from dcol_tpu_torch.ops.cones import ConeLayout
 data = torch.load(sys.argv[2])
 dev = torch.device("cuda")
-ents = [dict(e, lay=ConeLayout(*e["lay"])) for e in data["entries"]]
+ents, bits = ([dict(e, lay=ConeLayout(*e["lay"])) for e in data[k]]
+              for k in ("entries", "bits"))
 nvcc_build.run_parallel([
-    (lambda e=e: pdip_cuda.build(torch.float32, e["nv"], e["lay"]))
-    for e in ents])
+    (lambda e=e: pdip_cuda.build(e["c"].dtype, e["nv"], e["lay"]))
+    for e in ents + bits])
+to_dev = lambda e: {k: (None if e[k] is None else
+                        tuple(v.to(dev) for v in e[k]) if k == "warm" else
+                        e[k].to(dev)) for k in ("c", "G", "h", "warm", "skip")}
+digests = []
+for e in bits:
+    a = to_dev(e)
+    sol = pdip_cuda.solve_socp_cuda(a["c"], a["G"], a["h"], e["lay"],
+                                    warm=a["warm"], skip=a["skip"], **e["kw"])
+    h = hashlib.sha256()
+    for t in sol:
+        h.update(t.cpu().numpy().tobytes())
+    digests.append(h.hexdigest())
 rows = []
 for e in ents:
-    a = {k: (None if e[k] is None else
-             tuple(v.to(dev) for v in e[k]) if k == "warm" else
-             e[k].to(dev)) for k in ("c", "G", "h", "warm", "skip")}
+    a = to_dev(e)
     ms, sol = timer.time_launch(lambda: pdip_cuda.solve_socp_cuda(
         a["c"], a["G"], a["h"], e["lay"], warm=a["warm"], skip=a["skip"],
         **data["kw"]))
     rows.append({"shape": e["shape"], "ms": ms,
                  "iters_sum": float(sol.iters.double().sum()),
-                 "converged": int(sol.converged.sum())})
-print(json.dumps({"launches": rows, "main": timer.main_path_pdip(dev)}))
+                 "converged": int(sol.converged.sum()),
+                 "arith": str(timer.arith_of(torch.float32, e["lay"]))[6:]})
+print(json.dumps({"launches": rows, "bits": digests,
+                  "main": timer.main_path_pdip(dev)}))
 """
 
 
@@ -674,7 +764,9 @@ def ab(parent: str, device="cuda", out=print) -> Dict:
     """The PDIP kernel of another checkout (``parent``, e.g. an unpacked
     ``git archive`` of the parent commit) against this one's, in the order
     parent, this, this, parent, one process each: on the same saved
-    launches of shapes a-d, then on the main path (``main_path_pdip``)."""
+    launches of shapes a-d, then on the main path (``main_path_pdip``);
+    and whether each checkout gives the same outputs bit for bit (x, s, z,
+    iterations and flags; SHA-256) on the saved :func:`bits_entries`."""
     from dcol_tpu_torch.ops import nvcc_build
 
     device = _require_cuda(device)
@@ -686,11 +778,13 @@ def ab(parent: str, device="cuda", out=print) -> Dict:
     path = os.path.join(nvcc_build.BUILD_DIR, "ab_inputs.pt")
     cpu = lambda v: (None if v is None else tuple(a.cpu() for a in v)
                      if isinstance(v, tuple) else v.cpu())
-    torch.save({"kw": kw, "entries": [
-        {"shape": e["shape"], "nv": e["nv"],
-         "lay": (e["lay"].n_ort, e["lay"].s1, e["lay"].s2),
-         **{k: cpu(e[k]) for k in ("c", "G", "h", "warm", "skip")}}
-        for e in entries]}, path)
+    flat = lambda e, **more: dict(
+        more, nv=e["nv"], lay=(e["lay"].n_ort, e["lay"].s1, e["lay"].s2),
+        **{k: cpu(e[k]) for k in ("c", "G", "h", "warm", "skip")})
+    bits = bits_entries(device)
+    torch.save({"kw": kw,
+                "entries": [flat(e, shape=e["shape"]) for e in entries],
+                "bits": [flat(e, kw=e["kw"]) for e in bits]}, path)
     runs = []
     for name, tree in (("parent", parent), ("this", here), ("this", here),
                        ("parent", parent)):
@@ -701,15 +795,28 @@ def ab(parent: str, device="cuda", out=print) -> Dict:
         if proc.returncode != 0:
             raise RuntimeError(f"timer in {tree} failed:\n{proc.stderr}")
         runs.append((name, json.loads(proc.stdout.strip().splitlines()[-1])))
-    res = {"runs": runs, "totals": [], "main": []}
+    res = {"runs": runs, "totals": [], "main": [], "bits": []}
     both = lambda vals, fmt: " / ".join(format(v, fmt) for v in vals)
+    for i, e in enumerate(bits):
+        got = {name: {run["bits"][i] for n, run in runs if n == name}
+               for name in ("parent", "this")}
+        res["bits"].append({"name": e["name"], "repeatable": all(
+            len(d) == 1 for d in got.values()),
+            "equal": got["parent"] == got["this"]})
+    differ = [r["name"] for r in res["bits"] if not r["equal"]]
+    out(f"bitwise: {len(bits) - len(differ)} of {len(bits)} launches of "
+        f"the float32 piano and the float64 piano and cone give the "
+        f"parent's outputs bit for bit; each tree's two runs agree: "
+        f"{all(r['repeatable'] for r in res['bits'])}"
+        + (f"; differ: {', '.join(differ)}" if differ else ""))
     for name in ("parent", "this"):
         mine = [r for n, r in runs if n == name]
         for shape, what in SHAPES.items():
             ents = [e for e in entries if e["shape"] == shape]
             per_run = [[r for r in run["launches"] if r["shape"] == shape]
                        for run in mine]
-            accounted = [[account_entry(e, r["ms"], r["iters_sum"])
+            accounted = [[account_entry(e, r["ms"], r["iters_sum"],
+                                        arith=getattr(torch, r["arith"]))
                           for e, r in zip(ents, rs)] for rs in per_run]
             tots = [shape_totals(rows) for rows in accounted]
             conv = sum(r["converged"] for r in per_run[0])
@@ -718,6 +825,7 @@ def ab(parent: str, device="cuda", out=print) -> Dict:
                    "bound_ms": tots[0]["bound_ms"],
                    "bound_by": tots[0]["bound_by"],
                    "of_bound": [x["of_bound"] for x in tots],
+                   "arith_bound_ms": tots[0]["arith_bound_ms"],
                    "launch_ms": [[r["ms"] for r in rows]
                                  for rows in accounted],
                    "converged": conv,
@@ -727,14 +835,17 @@ def ab(parent: str, device="cuda", out=print) -> Dict:
                 f"{len(ents)} launches (two runs), bound "
                 f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}), "
                 f"{both((100 * x for x in row['of_bound']), '.2f')}% of "
-                f"bound; converged {conv}/{row['problems']}")
+                f"bound, kernel's ceiling {row['arith_bound_ms'] * 1e3:.2f} "
+                f"us; converged {conv}/{row['problems']}")
         main = [run["main"] for run in mine]
         res["main"].append({"tree": name, "runs": main})
         m0 = main[0]
         out(f"{name:6s} main path, batch-128 solve_batch, {m0['launches']} "
             f"PDIP launches (two runs): "
             f"{both((m['ms'] for m in main), '.3f')} ms, bound "
-            f"{m0['bound_ms']:.3f} ms; skipped problems {m0['skipped']:,} "
+            f"{m0['bound_ms']:.3f} ms, kernel's ceiling "
+            f"{m0['arith_bound_ms']:.3f} ms; skipped problems "
+            f"{m0['skipped']:,} "
             f"of {m0['problems']:,}, the others "
             f"{m0['iters'] / (m0['problems'] - m0['skipped']):.3f} PDIP "
             f"iterations on average; converged {m0['converged']}/{MAIN_BATCH}, "
@@ -747,7 +858,8 @@ def ab(parent: str, device="cuda", out=print) -> Dict:
             out(f"{name:6s}   {sh['start']:9s} B={sh['B']:>7,}: "
                 f"{sh['launches']} launches, "
                 f"{both((x['ms'] for x in got), '.3f')} ms, bound "
-                f"{sh['bound_ms']:.3f} ms; skipped {sh['skipped']:,} of "
+                f"{sh['bound_ms']:.3f} ms, kernel's ceiling "
+                f"{sh['arith_bound_ms']:.3f} ms; skipped {sh['skipped']:,} of "
                 f"{sh['problems']:,}, the others "
                 f"{sh['iters'] / (sh['problems'] - sh['skipped']):.3f} "
                 f"iterations on average")

@@ -7,20 +7,24 @@ lane that ends far from tol in the kernel only fails, a borderline lane
 with a good alpha passes, a lane with a bad alpha fails, and a lane far in
 the plain version only is held to 2e-3.
 
-Each captured lane is one that a kernel stopped far from tol (mu >= 10
-tol) in one batch-128 main-path solve's near-contact batches, where its
-plain version converged; the file holds the problems of its warp (8 in
-float32, 4 lanes a team).  Five (seed 0) are an earlier kernel's, which
-rounded x0^2 - |x1|^2 and the SOC line search otherwise than the plain
-version; three (seeds 4-6) a variant's whose Nesterov-Todd scaling divided
-where this kernel multiplies by reciprocals.  The open lane
-(``pdip_open_lane_*.npz``, seed 5) is one this kernel stops far on: a known
-fault, pinned here on the reference solvers.  On the CPU the port's plain version, JAX's f32
-``solve_socp`` and JAX's Pallas kernel in interpret mode each meet the rule
-against an f64 solve on every captured lane: near tol (mu < 10 tol), alpha
-within 1e-4 (1 + |alpha|) of the f64 solve's.  So the far stops were the
-CUDA kernel's own.  On the card the kernel meets the rule against its plain
-version on each lane, alone and in its warp.
+Each captured lane is one that a float32 kernel stopped far from tol (mu
+>= 10 tol) in one batch-128 main-path solve's near-contact batches, where
+its plain version converged; the file holds the problems of the warp it
+was launched in (8 problems, 4 lanes a team).  Five (seed 0) are an
+earlier kernel's, which rounded x0^2 - |x1|^2 and the SOC line search
+otherwise than the plain version; three (seeds 4-6) a variant's whose
+Nesterov-Todd scaling divided where the kernel multiplied by reciprocals;
+one (seed 5, midpoint (9, 10) lane 16048) the float32 kernel's that
+shipped with the reciprocals.  On the CPU the port's plain version, JAX's
+f32 ``solve_socp`` and JAX's Pallas kernel in interpret mode each meet the
+rule against an f64 solve on every captured lane: near tol (mu < 10 tol),
+alpha within 1e-4 (1 + |alpha|) of the f64 solve's.  So the far stops
+were the CUDA kernel's own.  The kernel now iterates these layouts in
+float64 from the float32 operands: its CPU stand-in, the plain version in
+float64 on the widened inputs with the outputs rounded to float32, meets
+both rules (``hard_lanes.judge``) on every lane and ends below tol.  On
+the card the kernel meets them against its plain versions on each lane,
+alone and in its warp.  No lane is open (``pdip_open_lane_*.npz``).
 """
 
 import numpy as np
@@ -39,7 +43,6 @@ torch.set_num_threads(1)
 LANES = hard_lanes.captured_lanes()
 NAMES = [hard_lanes.load_lane(p, "cpu")["name"] for p in LANES]
 OPEN = hard_lanes.captured_lanes(hard_lanes.OPEN)
-OPEN_NAMES = [hard_lanes.load_lane(p, "cpu")["name"] for p in OPEN]
 
 
 @pytest.fixture(scope="module")
@@ -116,10 +119,10 @@ def test_rule_plain_only_far_lane_held_to_2e_3(fixture_batch, d_alpha,
 
 
 def test_captured_lanes_are_warps():
-    """Eight lanes were captured and one is open, each with its warp's 8
-    problems (float32, teams of 4), its batch's settings and the capturing
-    kernel's far stop, alone as in the batch."""
-    assert (len(LANES), len(OPEN)) == (8, 1)
+    """Nine lanes were captured and none is open, each with its warp's 8
+    problems (float32, teams of 4 when captured), its batch's settings and
+    the capturing kernel's far stop, alone as in the batch."""
+    assert (len(LANES), len(OPEN)) == (9, 0)
     for p in LANES + OPEN:
         f = np.load(p)
         ln = hard_lanes.load_lane(p, "cpu")
@@ -146,11 +149,11 @@ def _meets_rule_f64(name, mu, alpha, lane):
 
 
 @pytest.mark.parametrize("solver", ["plain", "jax", "pallas_interpret"])
-@pytest.mark.parametrize("path", LANES + OPEN, ids=NAMES + OPEN_NAMES)
+@pytest.mark.parametrize("path", LANES, ids=NAMES)
 def test_captured_lane_reference_solvers(path, solver):
     """The port's plain version, JAX's solve_socp and JAX's Pallas kernel
     in interpret mode (as tests/test_pdip_pallas.py:42 runs it), all in
-    float32 on the CPU, on the captured or open lane alone."""
+    float32 on the CPU, on the captured lane alone."""
     lane = hard_lanes.load_lane(path, "cpu")
     i, lay, kw = lane["lane"], lane["lay"], lane["kw"]
     one = [lane[k][i:i + 1] for k in ("c", "G", "h")]
@@ -172,8 +175,9 @@ def test_captured_lane_reference_solvers(path, solver):
 def test_capture_writes_a_lane(tmp_path, fixture_batch):
     """tools/hard_lanes.py's capture on the CPU, with the plain version in
     place of the kernel and lane 162 of the fixture made far in the
-    kernel's outputs: one file holding lane 162's warp (lanes 160-167),
-    which loads back and meets the rule."""
+    kernel's outputs: one file holding lane 162's warp (lanes 160-163: the
+    layout is iterated in float64, 4 teams of 8 a warp), which loads back
+    and meets the rule."""
     fx, prob, plain = fixture_batch
     k = {n: t.clone() for n, t in plain.items()}
     _set(162, 2e-3)(k)
@@ -187,11 +191,82 @@ def test_capture_writes_a_lane(tmp_path, fixture_batch):
     assert saved[0]["path"].endswith("pdip_hard_lane_solved_1_7_162.npz")
     lane = hard_lanes.load_lane(saved[0]["path"], "cpu")
     assert lane["lane"] == 2 and lane["batch"] == "solved (1, 7)"
-    assert torch.equal(lane["G"], fx["G"][160:168])
+    assert torch.equal(lane["G"], fx["G"][160:164])
     f = np.load(saved[0]["path"])
     assert not bool(f["far_alone"])  # the plain version converges alone
     v = hard_lanes.judge_captured(solve_socp, lane)
     assert [w["failing"] for w in v.values()] == [[], []]
+
+
+def plain64_rounded(c, G, h, lay, **kw):
+    """The kernel's arithmetic on a float32 layout with an SOC block, on
+    the CPU: the plain version in float64 on the widened inputs, x, s and
+    z rounded back to float32, the flag from the float64 mu."""
+    o = solve_socp(c.double(), G.double(), h.double(), lay, **kw)
+    return o._replace(**{n: getattr(o, n).float() for n in ("x", "s", "z")})
+
+
+@pytest.mark.parametrize("path", LANES, ids=NAMES)
+def test_captured_lane_plain_f64(path):
+    """The CPU stand-in of the kernel's float64 iteration on each captured
+    lane, alone and in its warp: both rules (judge_captured: per lane
+    against plain float32, the f64 rule against plain float64) pass, and
+    the lane ends below tol."""
+    lane = hard_lanes.load_lane(path, "cpu")
+    assert hard_lanes.iterates_in_f64(lane["c"].dtype, lane["lay"])
+    v = hard_lanes.judge_captured(plain64_rounded, lane)
+    for where, w in v.items():
+        assert w["failing"] == [] and not w["count_short"], (where, w)
+        assert w["f64"]["failing"] == [], (where, w["f64"])
+        assert w["mu"] < lane["kw"]["tol"], (where, w["mu"])
+
+
+def test_judge_needs_plain_f64_on_soc_layouts(fixture_batch):
+    """A float32 batch with an SOC block is iterated in float64, so judge
+    holds it to both rules: it runs plain in float64 on the widened inputs
+    (hard_lanes.plain_f64) itself, from the batch's settings and warm
+    start, and judges lane ``at`` alone as that lane of the batch."""
+    fx, prob, plain = fixture_batch
+    assert hard_lanes.iterates_in_f64(torch.float32, fx["lay"])
+    v = hard_lanes.judge(plain, plain, fx["lay"], prob, fx["kw"])
+    p64 = hard_lanes.plain_f64(prob, fx["lay"], fx["kw"])
+    assert v["conv_plain64"] == int(p64["converged"].sum())
+    assert v["f64"] == hard_lanes.judge_f64(plain, p64, fx["lay"], prob,
+                                            fx["kw"]["tol"])
+    far = fx["lane"]
+    one = hard_lanes.judge(plain, plain, fx["lay"], prob, fx["kw"], at=far)
+    assert one["conv_plain64"] == int(p64["converged"][far])
+    assert one["disputed"] <= 1 and one["f64"]["disputed"] <= 1
+
+
+@pytest.fixture(scope="module")
+def mixed_batch(fixture_batch):
+    """The fixture's batch through the kernel's CPU stand-in."""
+    fx, prob, plain = fixture_batch
+    return hard_lanes.lanes_of(
+        plain64_rounded(*prob, fx["lay"], **fx["kw"]), fx["lay"])
+
+
+@pytest.mark.parametrize("edit, failing, short", [
+    (None, [], False),
+    (_set(5, 2e-3), [5], True),
+    (_set(7, 6e-5, 1e-5), [], True),
+], ids=["stand_in", "far_lane", "borderline_lane"])
+def test_judge_holds_both_rules(fixture_batch, mixed_batch, edit, failing,
+                                short):
+    """Both rules on the fixture's batch: the stand-in passes both; a lane
+    made far (100 tol) fails both; a lane made borderline (3 tol, alpha 1e-5
+    off) passes the per-lane rule but leaves the converged count short of
+    plain float64's by more than 0.1% of the 200 lanes."""
+    fx, prob, plain = fixture_batch
+    k = {n: t.clone() for n, t in mixed_batch.items()}
+    if edit is not None:
+        edit(k)
+    v = hard_lanes.judge(k, plain, fx["lay"], prob, fx["kw"])
+    assert v["failing"] == failing and v["f64"]["failing"] == failing
+    assert v["count_short"] is short and v["f64"]["count_short"] is short
+    assert [r for r in v["lanes"] if r.get("rule") == "f64"] == [
+        dict(r, rule="f64") for r in v["f64"]["lanes"]]
 
 
 def _card():
@@ -214,13 +289,14 @@ def test_captured_lane_kernel_on_card(path):
 
 
 def test_lane_steps_on_cpu():
-    """tools/lane_steps.py with the plain version: on the open lane it
+    """tools/lane_steps.py with the plain version: on seed 5's lane it
     converges in 16 steps, and one step from its iterate k (a warm start
     with no margin) reproduces its iterate k + 1 bitwise.  Its measurement
     needs the card and raises without one."""
     from dcol_tpu_torch.tools import lane_steps
 
-    path = OPEN[0]
+    path, = (p for p in LANES
+             if p.endswith("seed_5_midpoint_9_10_16048.npz"))
     lane = hard_lanes.load_lane(path, "cpu")
     its = lane_steps.iterates(solve_socp, lane)
     assert int(its["steps"][-1]) == 16 and its["mu"][-1] < lane["kw"]["tol"]

@@ -1,7 +1,8 @@
-"""The PDIP kernel's wrapper on the CPU, with no card and no nvcc: the team
-size for every layout the three systems and the golden pairs solve (taken
-from the JAX package's scenes), and the operands handed to the kernel in
-the callers' own row-major tensors."""
+"""The PDIP kernel's wrapper on the CPU, with no card and no nvcc: the
+arithmetic type and the team size for every layout the three systems and
+the golden pairs solve (taken from the JAX package's scenes), the library
+names and flags that carry both types, and the operands handed to the
+kernel in the callers' own row-major tensors."""
 
 import json
 import os
@@ -26,14 +27,19 @@ F32, F64 = torch.float32, torch.float64
 GOLD = os.path.join(os.path.dirname(__file__), "goldens")
 
 
+def _scene_layouts(mod):
+    """(nv, ConeLayout) of every obstacle group of a JAX package system."""
+    sys_ = mod.make_problem(dtype=jnp.float64)[0]
+    return [(pl.nv, ConeLayout(pl.n_ort, pl.s1, pl.s2))
+            for pl, _ in sys_.scene.groups]
+
+
 def _layouts():
     """(nv, ConeLayout) of every obstacle group of the JAX package's three
     systems and of every golden pair."""
     out = []
     for mod in (jquad, jpiano, jcone):
-        sys_ = mod.make_problem(dtype=jnp.float64)[0]
-        out += [(pl.nv, ConeLayout(pl.n_ort, pl.s1, pl.s2))
-                for pl, _ in sys_.scene.groups]
+        out += _scene_layouts(mod)
     A, b = prim.n_sided_polygon(5, 0.6)
     shapes = {"polytope": prim.rect_prism(2.5, 0.15, 0.01),
               "sphere": prim.sphere(0.8),
@@ -74,7 +80,7 @@ def test_team_lanes_covers_every_layout(dtype):
     layouts = _layouts()
     assert len(layouts) == 25  # 9 scene groups, 24 pair layouts; 8 shared
     for nv, lay in layouts:
-        t = pdip_cuda.team_lanes(lay.nr, dtype)
+        t = pdip_cuda.team_lanes(lay.nr, pdip_cuda.arith_dtype(dtype, lay))
         assert t in (2, 4, 8, 16, 32), (lay, t)
         assert t * _slots(lay, t) >= lay.nr, (lay, t)
         rows = sorted(r for lane in range(t) for r in _lane_rows(lay, t,
@@ -83,6 +89,54 @@ def test_team_lanes_covers_every_layout(dtype):
         assert all(len(_lane_rows(lay, t, lane)) <= _slots(lay, t)
                    for lane in range(t))
         assert pdip_cuda._key(dtype, nv, lay)[-1] == t
+
+
+@pytest.mark.parametrize("system, layouts, arith", [
+    (jquad, [(5, 4, 4, 4), (5, 2, 4, 4), (4, 0, 4, 4), (4, 1, 4, 3),
+             (4, 8, 4, 0), (6, 5, 4, 4), (4, 6, 4, 0)], F64),
+    (jcone, [(4, 7, 3, 0)], F64),
+    (jpiano, [(4, 12, 0, 0)], F32),
+], ids=["quadrotor", "cone", "piano"])
+def test_arith_dtype_by_layout(system, layouts, arith):
+    """A float32 launch iterates in float64 where its layout has a
+    second-order-cone block (the quadrotor's 7 and the cone's), in float32
+    where it has none (the piano's); the team is that of the arithmetic
+    type (8 in float64, 4 in float32) and the key carries both types.  A
+    float64 launch stays float64 (team 8), on every layout of the systems
+    and the golden pairs."""
+    got = _scene_layouts(system)
+    assert [(nv, lay.n_ort, lay.s1, lay.s2) for nv, lay in got] == layouts
+    for nv, lay in got:
+        assert pdip_cuda.arith_dtype(F32, lay) == arith
+        team = 8 if arith == F64 else 4
+        assert pdip_cuda.team_lanes(lay.nr, arith) == team
+        assert pdip_cuda._key(F32, nv, lay) == (
+            "pdip", F32, arith, nv, lay.n_ort, lay.s1, lay.s2, team)
+    for nv, lay in _layouts():
+        assert pdip_cuda.arith_dtype(F64, lay) == F64
+        assert pdip_cuda._key(F64, nv, lay)[2:] == (
+            F64, nv, lay.n_ort, lay.s1, lay.s2, 8)
+
+
+def test_build_names_both_types(monkeypatch):
+    """The library's name and nvcc defines carry the storage and the
+    arithmetic type, so the build cache cannot hand a float32-only library
+    to a launch that iterates in float64; nothing is compiled here."""
+    seen = []
+    monkeypatch.setattr(pdip_cuda.nvcc_build, "build",
+                        lambda *a: seen.append(a) or a)
+    for dtype, lay in ((F32, ConeLayout(4, 4, 4)), (F32, ConeLayout(12, 0, 0)),
+                       (F64, ConeLayout(4, 4, 4))):
+        pdip_cuda.build(dtype, 5, lay)
+    (k1, _, n1, d1), (k2, _, n2, d2), (k3, _, n3, d3) = seen
+    assert n1 == "pdip_float_double_5_4_4_4_t8" and k1[1:3] == (F32, F64)
+    assert "-DDCOL_T=float" in d1 and "-DDCOL_A=double" in d1
+    assert "-DDCOL_TEAM=8" in d1
+    assert n2 == "pdip_float_float_5_12_0_0_t4"
+    assert "-DDCOL_A=float" in d2 and "-DDCOL_TEAM=4" in d2
+    assert n3 == "pdip_double_double_5_4_4_4_t8"
+    assert "-DDCOL_T=double" in d3 and "-DDCOL_A=double" in d3
+    assert not any(k[0] == "pdip" for k in nvcc_build._BUILDS)
 
 
 def test_key_refuses_other_dtypes():

@@ -206,7 +206,8 @@ def test_fixture_kernel_converges_on_card(where):
 def test_nan_member_isolated_in_launch_on_card(dtype, start):
     """Members 1 and 9 of 36 (the golden batch tiled 6 times), each with a
     NaN c in one launch and a NaN G in another: member 9's team shares its
-    warp with 7 healthy teams in f32 (4 lanes a team) and 3 in f64 (8).
+    warp with 3 healthy teams of 8 lanes (the layout has an SOC block, so
+    f32 operands are iterated in f64, with f64's teams).
     The skipped members (index 2 mod 3) are neither."""
     dev = _card()
     c, G, h, jlay, _ = _padded_batch()

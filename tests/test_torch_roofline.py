@@ -135,6 +135,65 @@ def test_account_counts_skipped_problems_apart():
         "cold", "warm", "warm+skip"]
 
 
+@pytest.mark.parametrize("layout, arith", [((5, (4, 4, 4)), torch.float64),
+                                           ((4, (12, 0, 0)), torch.float32)])
+def test_account_bounds_by_arithmetic_type(layout, arith):
+    """The bound is the function's, float32 operations and float32 bytes,
+    whatever the kernel iterates in.  Beside it the kernel's ceiling takes
+    the same work at the peak of the type the launch iterates in: float64
+    for a float32 launch with an SOC block, float32 without one."""
+    nv, lay = layout[0], ConeLayout(*layout[1])
+    f32, B, iters = torch.float32, 25_600, 25_600 * 10.0
+    row = roofline.account(nv, lay, "cold", B, 1.0, iters)
+    assert row["arith"] == str(arith)[6:]
+    assert row["bytes"] == B * roofline.pdip_bytes(nv, lay, f32)
+    init, per_iter = roofline.pdip_work(nv, lay, f32)
+    assert row["flops"] == B * init + iters * per_iter
+    t_bytes = row["bytes"] / roofline.PEAK_BYTES
+    for key, dtype in (("bound_ms", f32), ("arith_bound_ms", arith)):
+        t_ops = row["flops"] / roofline.PEAK_FLOPS[dtype]
+        assert t_ops > t_bytes
+        assert row[key] == pytest.approx(1e3 * t_ops)
+    assert row["bound_by"] == "operations"
+    assert row["of_bound"] == pytest.approx(row["bound_ms"])
+    assert row["of_arith_bound"] == pytest.approx(row["arith_bound_ms"])
+    as_f32 = roofline.account(nv, lay, "cold", B, 1.0, iters, arith=f32)
+    assert as_f32["bound_ms"] == row["bound_ms"]
+    assert as_f32["arith_bound_ms"] == as_f32["bound_ms"]
+    assert row["arith_bound_ms"] / row["bound_ms"] == pytest.approx(
+        roofline.PEAK_FLOPS[f32] / roofline.PEAK_FLOPS[arith])
+    tot = roofline.shape_totals([row, as_f32])
+    assert tot["arith_bound_ms"] == pytest.approx(
+        row["arith_bound_ms"] + as_f32["arith_bound_ms"])
+    assert tot["of_arith_bound"] == pytest.approx(tot["arith_bound_ms"] / 2)
+
+
+def test_bits_entries_are_unchanged_specialisations(monkeypatch):
+    """The launches ``ab`` compares bit for bit are of specialisations that
+    iterate in their operands' type (the float32 piano, the float64 piano
+    and cone): each near-contact batch cold, warm from the plain version's
+    cold optimum with G and h moved, and warm with even problems skipped."""
+    from dcol_tpu_torch.ops import pdip_cuda
+
+    monkeypatch.setattr(roofline, "BITS_SCENARIOS", 2)
+    ents = roofline.bits_entries("cpu")
+    # one obstacle group each, at the rollout and the midpoint, 3 starts
+    assert len(ents) == 3 * 2 * len(roofline.BITS_SYSTEMS)
+    for e in ents:
+        dt = e["c"].dtype
+        assert pdip_cuda.arith_dtype(dt, e["lay"]) == dt, e["name"]
+        assert e["G"].dtype == e["h"].dtype == dt
+    assert {str(e["c"].dtype)[6:] + str(e["lay"].s1 + e["lay"].s2 > 0)
+            for e in ents} == {"float32False", "float64False", "float64True"}
+    for cold, warm, skip in zip(ents[::3], ents[1::3], ents[2::3]):
+        assert cold["name"].endswith(" cold") and cold["warm"] is None
+        assert warm["name"] == cold["name"][:-4] + "warm"
+        torch.testing.assert_close(warm["G"], cold["G"] * (1 + 1e-3))
+        assert skip["warm"] is warm["warm"] and skip["skip"] is not None
+        assert skip["skip"].tolist() == [
+            i % 2 == 0 for i in range(cold["c"].shape[0])]
+
+
 def test_bound_takes_the_larger_term():
     f32, f64 = torch.float32, torch.float64
     assert roofline.bound_seconds(67e12, 1.0, f32) == (1.0, "operations")

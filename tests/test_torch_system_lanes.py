@@ -13,7 +13,8 @@
 - The cold PDIP iterations of the quadrotor's 7 obstacle groups at
   ``Xref`` (one scenario, 1,100 problems; ``bench.py:114-150`` tiles the
   same batch 128 times): the port's plain version against JAX's f32
-  ``solve_socp`` on the same inputs.
+  ``solve_socp`` on the same inputs, in float32 and, as the kernel now
+  iterates these layouts, in float64 on the widened inputs.
 - The main path's guards, and the CLI's ``--seeds`` and ``--system``.
 """
 
@@ -108,7 +109,7 @@ def _judge_f64(f64_batch, edit_kernel=None, edit_plain=None):
     for d, edit in ((k, edit_kernel), (p, edit_plain)):
         if edit is not None:
             edit(d)
-    return hard_lanes.judge(k, p, b["lay"], prob, b["kw"]["tol"])
+    return hard_lanes.judge(k, p, b["lay"], prob, b["kw"])
 
 
 def _far(lanes, mu=1e-3, d_alpha=0.0):
@@ -171,17 +172,18 @@ def test_judge_by_dtype(f64_batch):
     assert bool(plain["converged"][5:10].all())
     k = {n: t.clone() for n, t in plain.items()}
     _far(range(5, 10), 2 * b["kw"]["tol"])(k)
-    v = hard_lanes.judge(k, plain, b["lay"], prob, b["kw"]["tol"])
+    v = hard_lanes.judge(k, plain, b["lay"], prob, b["kw"])
     assert v["disputed"] >= 5 and v["failing"] == []
     assert not v["count_short"]
     v = _judge_f64(f64_batch, edit_kernel=_far(range(5, 10), 2e-6))
     assert v["count_short"] and v["disputed"] == 0
 
 
-def test_cold_iterations_match_jax():
-    """The quadrotor's 7 groups' cold batches at Xref (one scenario, 1,100
-    problems): the port's plain f32 version's summed PDIP iterations
-    against JAX's f32 solve_socp on the same numpy inputs."""
+@pytest.fixture(scope="module")
+def xref_groups():
+    """The quadrotor's 7 groups' cold f32 batches at Xref (one scenario,
+    1,100 problems), their settings, and JAX's f32 solve_socp's summed
+    PDIP iterations on the same numpy inputs."""
     sys_, params, _, _, _ = hard_lanes.system_module("quadrotor") \
         .make_problem(F32, "cpu")
     rs, ps = sys_.robot_pose(params["Xref"][None])
@@ -189,17 +191,41 @@ def test_cold_iterations_match_jax():
                                          params["obs_p"][None, None])
     o = sys_.scene.opts
     kw = dict(tol=o.tol, max_iters=o.max_iters, jitter=o.jitter)
-    port = ref = B = 0
+    groups, ref = [], 0
     for (lay, idx), (c, G, h) in zip(sys_.scene.groups, grouped):
         c, G, h = (a.reshape((-1,) + a.shape[3:]).contiguous()
                    for a in (c, G, h))
-        cl = ConeLayout(lay.n_ort, lay.s1, lay.s2)
-        port += int(solve_socp(c, G, h, cl, **kw).iters.sum())
+        groups.append((ConeLayout(lay.n_ort, lay.s1, lay.s2), c, G, h))
         ref += int(np.asarray(jax_solve(
             c.numpy(), G.numpy(), h.numpy(),
             JLayout(lay.n_ort, lay.s1, lay.s2), **kw).iters).sum())
-        B += c.shape[0]
-    assert B == 1100
+    assert sum(g[1].shape[0] for g in groups) == 1100
+    return groups, kw, ref
+
+
+def test_cold_iterations_match_jax(xref_groups):
+    """The port's plain f32 version's summed PDIP iterations against JAX's
+    f32 solve_socp on the same inputs."""
+    groups, kw, ref = xref_groups
+    port = sum(int(solve_socp(c, G, h, cl, **kw).iters.sum())
+               for cl, c, G, h in groups)
+    assert abs(port / ref - 1) <= COLD_ITERS_RTOL, (port, ref)
+
+
+def test_cold_iterations_f64_match_jax(xref_groups):
+    """What the kernel now computes on these layouts (each has an SOC
+    block): the plain version in float64 on the float32 inputs widened.
+    Its summed iterations are 9,915 on the CPU, as plain float32's, within
+    the 0.5% that chip_smoke.py holds the kernel to against the JAX
+    package; every lane converges."""
+    groups, kw, ref = xref_groups
+    port, conv = 0, 0
+    for cl, c, G, h in groups:
+        assert hard_lanes.iterates_in_f64(c.dtype, cl)
+        o = solve_socp(c.double(), G.double(), h.double(), cl, **kw)
+        port += int(o.iters.sum())
+        conv += int(o.converged.sum())
+    assert port == 9915 and conv == 1100, (port, conv)
     assert abs(port / ref - 1) <= COLD_ITERS_RTOL, (port, ref)
 
 
