@@ -46,8 +46,10 @@ Phases, in order; any failure ends the run with a nonzero exit:
      f64 solve against its reference trajectory, then the f32 batch of the
      32 perturbed scenarios (at most 80 ALTRO iterations);
   8. MPC: the f64 piano with and without dual warm starts, then the
-     closed-loop quadrotor at 128 scenarios (horizon 40, 5 ticks: half
-     of bench_mpc.py's 10, to keep the whole run under ten minutes);
+     closed-loop quadrotor at 128 scenarios (bench_mpc.py's inputs,
+     tools/hard_lanes.py::mpc_problem: horizon 40, at most 8 iterations a
+     tick, 5 ticks: half of bench_mpc.py's 10, to keep the whole run
+     short);
  10. distributed + checkpoint: phase 4's 128 scenarios made on the host,
      through ``distributed.initialize`` (NCCL, world size 1, cuda:0),
      ``scatter_local`` and ``solve_scattered`` capped at 20 AL iterations,
@@ -84,8 +86,13 @@ Phases, in order; any failure ends the run with a nonzero exit:
      place, plain version); the near-contact batches (tools/hard_lanes.py)
      of every system's solve: phase 4's f32 quadrotor (14 batches, 281,600
      problems) and f64 piano, phase 7's f64 cone and f32 cone batch of 32
-     (converged or not), and an f32 piano solved here as the CLI solves
-     it; each judged by hard_lanes.judge (an f32 batch the kernel iterates
+     (converged or not), an f32 piano solved here as the CLI solves it,
+     and the f32 piano's batch of 64 of benchmarks/bench_systems.py at
+     seed 0 (x0_sigma 0.02; the one f32 layout the kernel iterates in f32;
+     held to hard_lanes.piano_failures: 64/64 in 34-39 mean iterations,
+     the cold re-check); and the cold batches at phase 8's MPC closed-loop
+     states (hard_lanes.judge_mpc, where h_applied is taken); each judged
+     by hard_lanes.judge (an f32 batch the kernel iterates
      in f64 by both rules), no lane failing, none far from tol in the
      kernel only, no batch short of plain's count in f64; the
      lanes captured from an earlier kernel's
@@ -547,8 +554,9 @@ def phase_quadrotor(run):
                           "max_h": stats["max_h"]}
     run.main_state = (X0_b, st)  # phase 10 holds its path to this state
     # phase 15 judges the near-contact problems of each solve in this list:
-    # (system, dtype, seed, scenarios) -> (initial, solved trajectories)
-    run.solved = {("quadrotor", F32, 0, BATCH): (X0_b, st.X)}
+    # (system, dtype, seed, scenarios, x0_sigma) -> (initial, solved
+    # trajectories)
+    run.solved = {("quadrotor", F32, 0, BATCH, 0.02): (X0_b, st.X)}
 
     # the cheapest end-to-end golden: the f64 piano mover, 35 iterations
     sys_p, params_p, X0_p, U0_p, cfg_p = piano_mover.make_problem(F64, dev)
@@ -564,7 +572,7 @@ def phase_quadrotor(run):
     run.log_shapes("piano solve_batch")
     check(bool(stp.converged[0]) and int(stp.iter[0]) == int(gp["iters"])
           and perr < 1e-3, "piano mover misses its golden")
-    run.solved[("piano_mover", F64, 0, 1)] = (X0_p[None], stp.X)
+    run.solved[("piano_mover", F64, 0, 1, 0.0)] = (X0_p[None], stp.X)
 
 
 # -- 5. FMA probe and the roofline ------------------------------------------
@@ -774,7 +782,7 @@ def phase_cone(run):
         f"{J_ref:.6f})")
     check(bool(st.converged[0]) and goal < 1e-4 and max_h < 1e-3
           and J <= 1.001 * J_ref, "f64 cone misses its reference")
-    run.solved[("coneThroughWall", F64, 0, 1)] = (X0[None], st.X)
+    run.solved[("coneThroughWall", F64, 0, 1, 0.0)] = (X0[None], st.X)
     run.record["cone_f64"] = {"wall_s": wall, "iters": int(st.iter[0]),
                               "goal_err": goal, "max_h": max_h, "cost": J,
                               "cost_ref": J_ref}
@@ -808,14 +816,15 @@ def phase_cone(run):
         "iters": st.iter.tolist(), "convio": st.convio.tolist(),
         "rho": st.rho.tolist(), "max_h_converged": stats["max_h"]}
     # their trajectories graze the walls whether they converged or not
-    run.solved[("coneThroughWall", F32, 0, n)] = (X0_b, st.X)
+    run.solved[("coneThroughWall", F32, 0, n, 0.02)] = (X0_b, st.X)
 
 
 # -- 8. MPC -----------------------------------------------------------------
 
 def phase_mpc(run):
     from dcol_tpu_torch.solver import mpc
-    from dcol_tpu_torch.systems import piano_mover, quadrotor
+    from dcol_tpu_torch.systems import piano_mover
+    from dcol_tpu_torch.tools import hard_lanes
 
     dev = run.dev
     sys_, params, X0, U0, cfg = piano_mover.make_problem(F64, dev)
@@ -838,16 +847,10 @@ def phase_mpc(run):
         f"{it_c:.3f} ({res['cold'][1]:.3f} s)")
     check(it_w < it_c, "dual warm starts did not cut MPC iterations")
 
-    S, n_steps, N, tick_iters = 128, 5, 40, 8
-    sys_, params, X0, U0, cfg = quadrotor.make_problem(F32, dev, N=N)
-    cfg = dataclasses.replace(cfg, max_iters=tick_iters)
-    rng = np.random.default_rng(0)
-    x0s = torch.as_tensor(X0[0].cpu().numpy()[None]
-                          + rng.normal(0, 0.02, (S, sys_.nx)),
-                          dtype=F32, device=dev)
-    pb = {k: v[None].expand((S,) + v.shape).contiguous()
-          for k, v in params.items()}
-    Ub = U0[None].expand((S,) + U0.shape).contiguous()
+    # bench_mpc.py's closed loop (tools/hard_lanes.py::mpc_problem)
+    n_steps = 5
+    sys_, pb, cfg, x0s, Ub = hard_lanes.mpc_problem(dev)
+    S, N, tick_iters = x0s.shape[0], sys_.N, cfg.max_iters
     r, wall = run.path(
         "mpc quadrotor S=128",
         lambda: mpc.mpc_run(sys_, pb, cfg, x0s, Ub, n_steps), ["pdip"])
@@ -867,6 +870,7 @@ def phase_mpc(run):
         "piano_warm_iters": it_w, "piano_cold_iters": it_c,
         "quad_wall_s": wall, "quad_ticks_per_s": n_steps / wall,
         "quad_mean_iters": mean_it, "quad_max_h_applied": h_max}
+    run.mpc = (sys_, pb, r)  # phase 15 judges its closed-loop states
 
 
 # -- 10. distributed + checkpoint ----------------------------------------
@@ -1157,24 +1161,43 @@ def phase_hard_lanes(run):
 
     # the class: the near-contact batches of every solve the smoke made
     # (phase 4's quadrotor and f64 piano, phase 7's f64 cone and f32 cone
-    # batch, and the f32 piano solved here as the CLI solves it), each
-    # judged by the rule of its dtype (tools/hard_lanes.py::judge), and the
-    # lanes captured from the quadrotor's
+    # batch, the f32 piano solved here as the CLI solves it, and the f32
+    # piano's batch of 64 of benchmarks/bench_systems.py at seed 0, the one
+    # f32 layout the kernel iterates in f32), each judged by the rule of its
+    # dtype (tools/hard_lanes.py::judge); phase 8's MPC closed-loop states;
+    # and the lanes captured from the quadrotor's
     # (tests/torch_fixtures/pdip_hard_lane_*.npz)
     t0 = time.perf_counter()
-    sys_p, pb, xb, ub, cfg = hard_lanes.system_problem("piano_mover", F32,
-                                                       dev, seed=0, n=1)
+    sys_p, pb, xb, ub, cfg = hard_lanes.system_problem(
+        "piano_mover", F32, dev, seed=0, n=1, sigma=0.0)
     stp, wall = run.path("hard lanes f32 piano solve_batch",
                          lambda: solve_batch(sys_p, pb, cfg, xb, ub), ["pdip"])
     log(f"[hard] f32 piano, nominal solve_batch: {wall:.3f} s, converged "
         f"{bool(stp.converged[0])}, iters {int(stp.iter[0])}")
     check(bool(stp.converged[0]), "hard lanes: the f32 piano did not converge")
-    run.solved[("piano_mover", F32, 0, 1)] = (xb, stp.X)
+    run.solved[("piano_mover", F32, 0, 1, 0.0)] = (xb, stp.X)
+    n, sigma = hard_lanes.SYSTEMS_BATCH, hard_lanes.PIANO_SIGMA
+    sys_p, pb, xb, ub, cfg = hard_lanes.system_problem(
+        "piano_mover", F32, dev, seed=0, n=n, sigma=sigma)
+    stp, wall = run.path(f"hard lanes f32 piano solve_batch x{n}",
+                         lambda: solve_batch(sys_p, pb, cfg, xb, ub), ["pdip"])
+    stats = hard_lanes.solve_stats(sys_p, pb, stp)
+    log(f"[hard] f32 piano, {n} scenarios at sigma {sigma:g}, seed 0 "
+        f"(bench_systems.py's batch): {wall:.3f} s, converged "
+        f"{stats['converged']}/{n}, mean iters {stats['mean_iters']:.4f}, "
+        f"max {stats['max_iters']}; cold re-check max h "
+        f"{stats['max_h']:.3e}, goal error {stats['goal_err']:.3e}")
+    run.log_shapes(f"hard lanes f32 piano solve_batch x{n}")
+    rec["piano_batch"] = dict(stats, wall_s=wall)
+    piano_missed = hard_lanes.piano_failures(stats, 0)
+    check(not piano_missed, f"hard lanes: the f32 piano's batch of {n} "
+                            f"misses its guards: {piano_missed}")
+    run.solved[("piano_mover", F32, 0, n, sigma)] = (xb, stp.X)
     rec["near_contact"], missed = {}, []
-    for (system, dtype, seed, n), (X0_s, X_s) in run.solved.items():
-        label = f"{system} {str(dtype)[6:]}"
-        sys_s, pb, xb, X = hard_lanes.system_state(system, dtype, dev,
-                                                   seed=seed, n=n, solved=X_s)
+    for (system, dtype, seed, n, sigma), (X0_s, X_s) in run.solved.items():
+        label = f"{system} {str(dtype)[6:]} x{n}"
+        sys_s, pb, xb, X = hard_lanes.system_state(
+            system, dtype, dev, seed=seed, n=n, sigma=sigma, solved=X_s)
         check(torch.equal(xb, X0_s), f"hard lanes: the {label} scenarios "
                                      f"differ from its solve's")
         batches = hard_lanes.near_contact_batches(sys_s, pb, xb, X)
@@ -1193,6 +1216,24 @@ def phase_hard_lanes(run):
         rec["near_contact"][label] = res
         missed += [f"{label}: {m}"
                    for m in hard_lanes.verdict_failures(res["totals"])]
+    sys_m, pb_m, r_m = run.mpc
+    (_, res), _ = run.path(
+        "hard lanes MPC X_applied batches",
+        lambda: hard_lanes.judge_mpc(sys_m, pb_m, r_m,
+                                     pdip_cuda.solve_socp_cuda), ["pdip"])
+    for r in res["batches"]:
+        for row in r["lanes"]:
+            log(f"[hard]   MPC {r['batch']} B={r['B']:,} "
+                + hard_lanes.describe_lane(row))
+    log(f"[hard] cold batches at phase 8's MPC closed-loop states "
+        f"({tuple(r_m.X_applied.shape[:2])} scenarios x states): "
+        f"{len(res['batches'])} batches, "
+        + hard_lanes.describe_totals(res["totals"])
+        + f"; h from the kernel's cold alphas max {res['h_cold_max']:.3e}, "
+        f"max |h - h_applied| {res['h_max_abs_diff']:.3e}")
+    rec["near_contact"]["mpc X_applied"] = res
+    missed += [f"MPC X_applied: {m}"
+               for m in hard_lanes.verdict_failures(res["totals"])]
     captured, _ = run.path("hard lanes captured", lambda: {
         os.path.basename(p): hard_lanes.judge_captured(
             pdip_cuda.solve_socp_cuda, hard_lanes.load_lane(p, dev))

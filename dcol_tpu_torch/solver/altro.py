@@ -142,13 +142,21 @@ def eval_mask(mu, h):
 # Cost (reduces the last two dims: X (S, ..., N, nx) -> (S, ...))
 # ---------------------------------------------------------------------------
 
+def _sum_knots(a):
+    """Each scenario's sum over the last two dims (knots, components), one
+    short dim at a time: on the card a reduction over a long contiguous row
+    groups its elements by the row's address, so identical scenarios in
+    different rows of the batch would round differently."""
+    return a.sum(-1).sum(-1)
+
+
 def quad_cost(sys, params, X, U):
     """Sum of LQR tracking terms (running + terminal), ALTRO.py:148-180."""
     dX = X - scenario_view(params["Xref"], X.dim())
     dU = U - scenario_view(params["Uref"], U.dim())
-    run_x = 0.5 * torch.sum(dX[..., :-1, :] * _mv(params["Q"], dX[..., :-1, :]),
-                            dim=(-2, -1))
-    run_u = 0.5 * torch.sum(dU * _mv(params["R"], dU), dim=(-2, -1))
+    run_x = 0.5 * _sum_knots(dX[..., :-1, :] * _mv(params["Q"],
+                                                   dX[..., :-1, :]))
+    run_u = 0.5 * _sum_knots(dU * _mv(params["R"], dU))
     term = 0.5 * torch.sum(dX[..., -1, :] * _mv(params["Qf"], dX[..., -1, :]),
                            dim=-1)
     return run_x + run_u + term
@@ -158,11 +166,11 @@ def al_cost(params, X, hx, hu, mu, mux, lambd, rho):
     """Augmented-Lagrangian penalty terms (ALTRO.py:120-144)."""
     r = scenario_view(rho, X.dim() - 2)
     mask_u = eval_mask(mu, hu)
-    c_u = (torch.sum(scenario_view(mu, hu.dim()) * hu, dim=(-2, -1))
-           + 0.5 * r * torch.sum(mask_u * hu * hu, dim=(-2, -1)))
+    c_u = (_sum_knots(scenario_view(mu, hu.dim()) * hu)
+           + 0.5 * r * _sum_knots(mask_u * hu * hu))
     mask_x = eval_mask(mux, hx)
-    c_x = (torch.sum(scenario_view(mux, hx.dim()) * hx, dim=(-2, -1))
-           + 0.5 * r * torch.sum(mask_x * hx * hx, dim=(-2, -1)))
+    c_x = (_sum_knots(scenario_view(mux, hx.dim()) * hx)
+           + 0.5 * r * _sum_knots(mask_x * hx * hx))
     dxN = X[..., -1, :] - scenario_view(params["Xref"][:, -1], X.dim() - 1)
     c_g = (torch.sum(scenario_view(lambd, dxN.dim()) * dxN, dim=-1)
            + 0.5 * r * torch.sum(dxN * dxN, dim=-1))

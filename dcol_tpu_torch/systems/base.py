@@ -35,6 +35,14 @@ from dcol_tpu_torch.ops.pdip_cuda import solve_socp_cuda
 _JVP_LOCK = threading.Lock()
 
 
+def lagrangian_gx(G, x):
+    """G x of each problem, G (..., nr, nv) and x (..., nv): a batched
+    matmul.  On the card it rounds a problem by its position in the batch,
+    so replicated scenarios part (``tools/replicas.py``; ROADMAP Queue
+    C)."""
+    return (G @ x[..., None])[..., 0]
+
+
 def jvp(fn, primals, tangents):
     """``torch.func.jvp`` under a process-wide lock.  Forward-mode AD levels
     are global to the process, so two host threads inside ``jvp`` at once
@@ -212,7 +220,7 @@ class CollisionScene:
                                            obs_p[:, None])
             lags = []
             for gi, (_, G_, h_) in enumerate(grouped):
-                Gx = (G_ @ xs[gi][..., None])[..., 0]
+                Gx = lagrangian_gx(G_, xs[gi])
                 lags.append(torch.sum(zs[gi] * (Gx - h_), dim=-1))
             return self._gather_cols(lags)
 

@@ -4,9 +4,14 @@ iterates float32 problems with a second-order-cone block in float64).
 
     python -m dcol_tpu_torch.tools.hard_lanes [--capture DIR]
     python -m dcol_tpu_torch.tools.hard_lanes --system SYSTEM
-        [--dtype {float32,float64}] [--seeds 1-6] [--capture DIR]
+        [--dtype {float32,float64}] [--seeds 1-6] [--scenarios N]
+        [--sigma S] [--capture DIR]
+    python -m dcol_tpu_torch.tools.hard_lanes --system SYSTEM --latency
+        [--dtype ...] [--seeds 9-14] [--capture DIR]
+    python -m dcol_tpu_torch.tools.hard_lanes --mpc [--capture DIR]
 
-Without ``--system``, ``--dtype`` or ``--seeds``, three
+Without any of ``--system``, ``--dtype``, ``--seeds``, ``--scenarios``,
+``--sigma``, ``--latency`` or ``--mpc``, three
 measurements, each of the kernel against its plain PyTorch version on the
 same card, judged lane by lane by :func:`judge` (a float32 batch the
 kernel iterates in float64 also against plain in float64):
@@ -29,23 +34,32 @@ kernel iterates in float64 also against plain in float64):
    kernel is known to stop far on (ROADMAP Queue C), reported and not
    gated.
 
-With any of them, a run over seeds (:func:`run_seeds`): at each seed one
-``solve_batch`` of the system's ``perturb_scenarios(n, seed,
-x0_sigma=0.02)`` (``n = 1``: the nominal problem) in that dtype, through
-the kernel, with its converged count, iterations, cold re-check and wall
-(the batch-128 f32 quadrotor is held to the main path's guards,
-:func:`main_path_failures`); then that solve's near-contact batches,
-judged as in 2.  Defaults: the quadrotor, float32, seed 0; the scenario
-count is :data:`RUNS`'s.  Exits 1 if a guard or the rule fails.
+With ``--system`` and the like, a run over seeds (:func:`run_seeds`): at
+each seed one ``solve_batch`` of the system's ``perturb_scenarios(n, seed,
+x0_sigma=sigma)`` in that dtype (``--scenarios``, ``--sigma``; sigma 0 is
+the nominal problem replicated), through the kernel, with its converged
+count, iterations, cold re-check, PDIP launches and wall; a batch that a
+benchmark script runs is held to that script's guards (:func:`guards`:
+the batch-128 f32 quadrotor of ``bench.py``, the f32 piano's and cone's
+batches of 64 of ``benchmarks/bench_systems.py``).  With ``--latency``,
+each seed's one scenario ``probe_latency.scenario`` through
+``solve_single``, as ``bench.py`` times it, held to converging and the
+cold re-check.  Then that solve's near-contact batches, judged as in 2.
+Defaults: the quadrotor, float32, seed 0; the scenario count and ALTRO
+cap are :data:`RUNS`'s, sigma RUNS' with its count, else 0.02
+(:func:`run_shape`).  ``--mpc``: ``chip_smoke.py`` phase 8's
+closed-loop quadrotor for ``bench_mpc.py``'s 10 ticks, and the cold
+constraint batches at its measured states (:func:`judge_mpc`).  Exits 1
+if a guard or the rule fails.
 
 To measure another checkout's kernel (an unpacked ``git archive`` of the
 parent, say), run this file from that checkout's root with it first on the
 path, ``PYTHONPATH=. python <this checkout>/dcol_tpu_torch/tools/hard_lanes.py``:
 the fixtures are this checkout's, the batches come from that checkout's own
-solve (that checkout's wrapper must have ``arith_dtype``).  Needs a CUDA
-device and raises without one; the record goes to
+solve.  Needs a CUDA device and raises without one; the record goes to
 ``dcol_tpu_torch/build/hard_lanes.json`` (a run over seeds:
-``hard_lanes_<system>_<dtype>.json``).
+``hard_lanes_<system>_<dtype>_<scenarios>x<sigma>.json`` or
+``..._latency.json``; ``--mpc``: ``hard_lanes_mpc.json``).
 """
 
 from __future__ import annotations
@@ -79,22 +93,46 @@ WARP = 32
 # a float64 kernel may converge this share of a batch's lanes fewer than
 # its plain version
 COUNT_SLACK = 1e-3
-# the systems, by their CLI names: the scenario count of a run over seeds
-# and its ALTRO cap (None: the system's own).  Some perturbed f32 cone
-# scenarios iterate past 1,000 ALTRO iterations without failing, so the
-# cone's batch is capped, in both dtypes, as chip_smoke.py's phase 7 caps
-# its f32 batch
+# the systems, by their CLI names: the scenario count, x0_sigma and ALTRO
+# cap (None: the system's own) of a run over seeds.  The piano's is its
+# nominal problem (sigma 0: perturb_scenarios adds exact zeros).  Some
+# perturbed f32 cone scenarios iterate past 1,000 ALTRO iterations without
+# failing, so the cone's batch is capped, in both dtypes, as
+# chip_smoke.py's phase 7 caps its f32 batch
 CONE_MAX_ITERS = 80
-RUNS = {"quadrotor": (128, None), "piano_mover": (1, None),
-        "coneThroughWall": (32, CONE_MAX_ITERS)}
-# the main path's guards (bench.py): every scenario converged, a mean of
-# ALTRO iterations in the JAX f32 band, and converged trajectories that
-# reach the goal without collision by a cold re-check
+PERTURB_SIGMA = 0.02  # bench.py's and bench_systems.py's x0_sigma
+RUNS = {"quadrotor": (128, PERTURB_SIGMA, None),
+        "piano_mover": (1, 0.0, None),
+        "coneThroughWall": (32, PERTURB_SIGMA, CONE_MAX_ITERS)}
+# the benchmarks' guards: every scenario converged, finite, and converged
+# trajectories that reach the goal without collision by a cold re-check;
+# the main path (bench.py) also a mean of ALTRO iterations in the JAX f32
+# band
 MAIN_ITERS = (44.0, 55.0)
 MAIN_H_TOL = MAIN_GOAL_TOL = 1e-3
 # the JAX package's mean ALTRO iterations of the batch-128 f32 quadrotor at
 # bench.py's seeds (BENCH_r05.json, printed to one decimal)
 JAX_MEAN_ITERS = {1: 47.6, 2: 47.7, 3: 47.5, 4: 47.5, 5: 47.7, 6: 47.5}
+# benchmarks/bench_systems.py's f32 batches of 64: the piano perturbed at
+# x0_sigma 0.02 (seed 0, then seeds 1-6), the cone's nominal problem
+# replicated (sigma 0)
+SYSTEMS_BATCH = 64
+PIANO_SIGMA, CONE_SIGMA = PERTURB_SIGMA, 0.0
+# the JAX package's piano means at its timed seeds 2-6
+# (benchmarks/systems_r05b_raw.log, reps 0-4, one decimal; rep r is seed
+# r + 2); the port's must lie within PIANO_JAX_ATOL of each, and in
+# PIANO_ITERS at seeds 0-1 (the JAX script's untimed solves)
+PIANO_JAX_MEAN_ITERS = {2: 36.5, 3: 36.8, 4: 36.2, 5: 36.4, 6: 36.3}
+PIANO_JAX_ATOL = 0.5
+PIANO_ITERS = (34.0, 39.0)
+# the JAX package's cone batch: 64/64 in 50.0 at every rep (same log);
+# printed beside the port's, not gated (the kernel iterates it in f64)
+CONE_JAX_MEAN_ITERS = 50.0
+# chip_smoke.py phase 8's closed loop, the f32 quadrotor of
+# benchmarks/bench_mpc.py: S scenarios from default_rng(0), horizon N, at
+# most TICK_ITERS ALTRO iterations a tick; bench_mpc.py's default of
+# MPC_STEPS ticks (the smoke runs 5)
+MPC_S, MPC_N, MPC_TICK_ITERS, MPC_STEPS = 128, 40, 8, 10
 
 
 def load_fixture(device) -> Dict:
@@ -377,26 +415,26 @@ def system_module(system: str):
 
 
 def system_problem(system: str, dtype, device, *, seed: int, n: int,
+                   sigma: float = PERTURB_SIGMA,
                    max_iters: Optional[int] = None):
     """(system, scenario parameters, X0, U0, config) of ``n`` scenarios of
-    ``system`` in ``dtype``: ``perturb_scenarios(n, seed, x0_sigma=0.02)``,
-    or with ``n = 1`` the nominal problem (``seed`` unused); the ALTRO cap
+    ``system`` in ``dtype``: ``perturb_scenarios(n, seed, x0_sigma=sigma)``,
+    as ``bench.py`` and ``benchmarks/bench_systems.py`` build them, for any
+    n (``sigma = 0``: the nominal problem, replicated); the ALTRO cap
     ``max_iters`` if given."""
     from dcol_tpu_torch.parallel.batch import perturb_scenarios
 
     sys_, params, X0, U0, cfg = system_module(system).make_problem(dtype,
                                                                    device)
-    if n == 1:
-        pb, xb, ub = {k: v[None] for k, v in params.items()}, X0[None], U0[None]
-    else:
-        pb, xb, ub = perturb_scenarios(params, X0, U0, n=n, seed=seed,
-                                       x0_sigma=0.02)
+    pb, xb, ub = perturb_scenarios(params, X0, U0, n=n, seed=seed,
+                                   x0_sigma=sigma)
     if max_iters is not None:
         cfg = dataclasses.replace(cfg, max_iters=max_iters)
     return sys_, pb, xb, ub, cfg
 
 
 def system_state(system: str, dtype, device, *, seed: int, n: int,
+                 sigma: float = PERTURB_SIGMA,
                  solved: Optional[torch.Tensor] = None,
                  max_iters: Optional[int] = None):
     """(system, scenario parameters, initial and solved trajectories) of
@@ -406,7 +444,8 @@ def system_state(system: str, dtype, device, *, seed: int, n: int,
     from dcol_tpu_torch.parallel.batch import solve_batch
 
     sys_, pb, xb, ub, cfg = system_problem(system, dtype, device, seed=seed,
-                                           n=n, max_iters=max_iters)
+                                           n=n, sigma=sigma,
+                                           max_iters=max_iters)
     if solved is None:
         solved = solve_batch(sys_, pb, cfg, xb, ub).X
     return sys_, pb, xb, solved
@@ -415,8 +454,9 @@ def system_state(system: str, dtype, device, *, seed: int, n: int,
 def solve_stats(sys_, pb, st) -> Dict:
     """What a batch solve's guards read: converged and failed counts, the
     mean and largest ALTRO iteration counts, whether X and U are finite,
-    and a cold re-check of the converged trajectories (max h = 1 - alpha
-    and max |x_N - x_goal|; NaN if none converged)."""
+    a cold re-check of the converged trajectories (max h = 1 - alpha and
+    max |x_N - x_goal|; NaN if none converged), and whether every
+    scenario's iterations and X equal the first's (bitwise)."""
     from dcol_tpu_torch.solver import altro
 
     conv = st.converged
@@ -433,19 +473,23 @@ def solve_stats(sys_, pb, st) -> Dict:
             "finite": bool(torch.isfinite(st.X).all()
                            & torch.isfinite(st.U).all()),
             "max_h": worst, "goal_err": goal,
+            "iters_equal": bool((st.iter == st.iter[:1]).all()),
+            "X_equal": bool((st.X == st.X[:1]).all()),
             "scenarios_converged": conv.nonzero()[:, 0].tolist(),
             "iters": st.iter.tolist()}
 
 
-def main_path_failures(stats: Dict) -> List[str]:
-    """The main path's guards on :func:`solve_stats` of a batch solve: each
-    guard it misses, or none."""
-    lo, hi = MAIN_ITERS
+def batch_failures(stats: Dict, band=None) -> List[str]:
+    """The benchmarks' guards on :func:`solve_stats` of a batch solve: each
+    guard it misses, or none.  Every scenario converged, X and U finite,
+    the converged trajectories collision-free at the goal by the cold
+    re-check; with ``band`` = (lo, hi), the mean ALTRO iterations in it."""
     out = []
     if stats["converged"] != stats["n"]:
         out.append(f"only {stats['converged']}/{stats['n']} converged")
-    if not lo <= stats["mean_iters"] <= hi:
-        out.append(f"mean ALTRO iterations {stats['mean_iters']}")
+    if band is not None and not band[0] <= stats["mean_iters"] <= band[1]:
+        out.append(f"mean ALTRO iterations {stats['mean_iters']} outside "
+                   f"{band[0]}-{band[1]}")
     if not stats["finite"]:
         out.append("non-finite states or controls")
     if not (stats["max_h"] < MAIN_H_TOL and stats["goal_err"] < MAIN_GOAL_TOL):
@@ -454,25 +498,77 @@ def main_path_failures(stats: Dict) -> List[str]:
     return out
 
 
-def near_contact_batches(sys_, pb, xb, X) -> List[Dict]:
-    """The obstacle groups' cold constraint batches at the solved
-    trajectories ``X`` and at the midpoints of ``xb`` and ``X``, each flat:
-    {"name", "nv", "lay", "c", "G", "h", "kw"}."""
+def main_path_failures(stats: Dict) -> List[str]:
+    """The main path's guards (``bench.py``): :func:`batch_failures` with
+    the mean in the JAX f32 band MAIN_ITERS."""
+    return batch_failures(stats, MAIN_ITERS)
+
+
+def piano_failures(stats: Dict, seed: int) -> List[str]:
+    """The f32 piano's batch of 64 (``bench_systems.py``):
+    :func:`batch_failures` with the mean within PIANO_JAX_ATOL of the JAX
+    package's at ``seed`` (seeds 2-6), else in PIANO_ITERS."""
+    jax_mean = PIANO_JAX_MEAN_ITERS.get(seed)
+    band = (PIANO_ITERS if jax_mean is None
+            else (jax_mean - PIANO_JAX_ATOL, jax_mean + PIANO_JAX_ATOL))
+    return batch_failures(stats, band)
+
+
+def cone_failures(stats: Dict) -> List[str]:
+    """The f32 cone's replicated batch of 64 (``bench_systems.py``):
+    :func:`batch_failures`, and 64 identical problems solved in one launch
+    give every member the same iterations and X bit for bit."""
+    out = batch_failures(stats)
+    if not stats["iters_equal"]:
+        out.append("the replicated members' iterations differ")
+    if not stats["X_equal"]:
+        out.append("the replicated members' trajectories differ")
+    return out
+
+
+def guards(system: str, dtype, n: int, sigma: float, seed: int,
+           stats: Dict) -> Tuple[Optional[List[str]], Optional[float]]:
+    """The guards that the benchmark script running this batch (``n``
+    scenarios of ``system`` in ``dtype`` at ``sigma``) holds it to, as a
+    list of those it misses (None: no benchmark runs it), and the JAX
+    package's mean ALTRO iterations on it at ``seed`` (None: none
+    recorded)."""
+    if dtype != torch.float32:
+        return None, None
+    key = (system, n, sigma)
+    if key == ("quadrotor", RUNS["quadrotor"][0], RUNS["quadrotor"][1]):
+        return main_path_failures(stats), JAX_MEAN_ITERS.get(seed)
+    if key == ("piano_mover", SYSTEMS_BATCH, PIANO_SIGMA):
+        return piano_failures(stats, seed), PIANO_JAX_MEAN_ITERS.get(seed)
+    if key == ("coneThroughWall", SYSTEMS_BATCH, CONE_SIGMA):
+        return cone_failures(stats), CONE_JAX_MEAN_ITERS
+    return None, None
+
+
+def constraint_batches(sys_, pb, X, tag: str) -> List[Dict]:
+    """The obstacle groups' cold constraint batches at the states ``X``
+    (S, T, nx), each flat (B = S T x the group's obstacles) and named
+    "<tag> <group>": {"name", "nv", "lay", "c", "G", "h", "kw"}."""
     from dcol_tpu_torch.ops.cones import ConeLayout
 
     opts = sys_.scene.opts
     kw = dict(tol=opts.tol, max_iters=opts.max_iters, jitter=opts.jitter)
-    out = []
-    for tag, Xt in (("solved", X), ("midpoint", 0.5 * (X + xb))):
-        rs, ps = sys_.robot_pose(Xt)
-        grouped = sys_.scene.assemble_groups(rs, ps, pb["obs_r"][:, None],
-                                             pb["obs_p"][:, None])
-        for (lay, idx), (c, G, h) in zip(sys_.scene.groups, grouped):
-            out.append({"name": f"{tag} {idx}", "nv": lay.nv,
-                        "lay": ConeLayout(lay.n_ort, lay.s1, lay.s2), "kw": kw,
-                        **{k: a.reshape((-1,) + a.shape[3:]).contiguous()
-                           for k, a in (("c", c), ("G", G), ("h", h))}})
-    return out
+    rs, ps = sys_.robot_pose(X)
+    grouped = sys_.scene.assemble_groups(rs, ps, pb["obs_r"][:, None],
+                                         pb["obs_p"][:, None])
+    return [{"name": f"{tag} {idx}", "nv": lay.nv,
+             "lay": ConeLayout(lay.n_ort, lay.s1, lay.s2), "kw": kw,
+             **{k: a.reshape((-1,) + a.shape[3:]).contiguous()
+                for k, a in (("c", c), ("G", G), ("h", h))}}
+            for (lay, idx), (c, G, h) in zip(sys_.scene.groups, grouped)]
+
+
+def near_contact_batches(sys_, pb, xb, X) -> List[Dict]:
+    """The obstacle groups' cold constraint batches at the solved
+    trajectories ``X`` and at the midpoints of ``xb`` and ``X``
+    (:func:`constraint_batches`)."""
+    return (constraint_batches(sys_, pb, X, "solved")
+            + constraint_batches(sys_, pb, 0.5 * (X + xb), "midpoint"))
 
 
 def outputs(solve, batches) -> List[Dict]:
@@ -678,45 +774,80 @@ def log_capture(saved, out):
             + describe_lane(s))
 
 
+def run_shape(system: str, n: Optional[int] = None,
+              sigma: Optional[float] = None) -> Tuple[int, float,
+                                                       Optional[int]]:
+    """(scenarios, sigma, ALTRO cap) of a run over seeds of ``system``: n
+    if given, else :data:`RUNS`'s count; sigma if given, else RUNS' with
+    RUNS' count (the piano's nominal problem), else PERTURB_SIGMA as the
+    benchmark scripts perturb; RUNS' cap."""
+    n0, sigma0, cap = RUNS[system]
+    if sigma is None:
+        sigma = sigma0 if n is None else PERTURB_SIGMA
+    return (n0 if n is None else n), sigma, cap
+
+
 def run_seeds(system: str, dtype, seeds, device="cuda", out=print,
-              capture_dir=None) -> Dict:
-    """At each seed, ``system``'s scenarios (:func:`system_problem`, as many
-    as :data:`RUNS` says) solved by ``solve_batch``
-    through the kernel: converged count, iterations, cold re-check, PDIP
-    launches and the host-bound eager wall; the batch-128 f32 quadrotor is
-    held to :func:`main_path_failures`.  Then that solve's near-contact
-    batches, the kernel against plain (:func:`compare`); with
-    ``capture_dir``, their kernel-only far lanes are written there.
-    ``failures`` lists every guard and rule missed."""
+              capture_dir=None, n: Optional[int] = None,
+              sigma: Optional[float] = None, latency: bool = False) -> Dict:
+    """At each seed, ``n`` scenarios of ``system`` at ``sigma``
+    (:func:`system_problem`; :func:`run_shape` fills in None) solved by
+    ``solve_batch`` through the kernel, or with ``latency`` the seed's one
+    scenario ``probe_latency.scenario`` through ``solve_single``: converged
+    count, iterations, cold re-check, PDIP launches and the host-bound
+    eager wall.  A batch a benchmark script runs is held to its guards
+    (:func:`guards`), a latency solve to :func:`batch_failures`.  Then
+    that solve's near-contact batches, the kernel against plain
+    (:func:`compare`); with ``capture_dir``, their kernel-only far lanes
+    are written there.  ``failures`` lists every guard and rule missed."""
     from dcol_tpu_torch.ops import pdip_cuda
     from dcol_tpu_torch.ops.pdip import solve_socp
     from dcol_tpu_torch.parallel.batch import solve_batch
+    from dcol_tpu_torch.solver import altro
+    from dcol_tpu_torch.tools import probe_latency
 
-    system_module(system)
+    mod = system_module(system)
     device = _card(device)
-    n, cap = RUNS[system]
+    if latency:
+        n, sigma, cap = 1, None, None
+        prob = mod.make_problem(dtype, device)
+    else:
+        n, sigma, cap = run_shape(system, n, sigma)
     name = str(dtype)[6:]
-    main_path = (system, dtype) == ("quadrotor", torch.float32)
     kernel = pdip_cuda.solve_socp_cuda
     res = {"device": torch.cuda.get_device_name(device), "system": system,
-           "dtype": name, "n": n, "max_iters": cap, "seeds": [],
-           "failures": []}
+           "dtype": name, "n": n, "sigma": sigma, "latency": latency,
+           "max_iters": cap, "seeds": [], "failures": []}
     for seed in seeds:
-        sys_, pb, xb, ub, cfg = system_problem(system, dtype, device,
-                                               seed=seed, n=n, max_iters=cap)
+        if latency:
+            scen = probe_latency.scenario(prob, seed)
+            sys_ = prob[0]
+            pb = {k: v[None] for k, v in scen[0].items()}
+            xb = scen[1][None]
+            solve = lambda: altro.tree_map(lambda a: a[None],
+                                           probe_latency.solve_one(prob, scen))
+        else:
+            sys_, pb, xb, ub, cfg = system_problem(
+                system, dtype, device, seed=seed, n=n, sigma=sigma,
+                max_iters=cap)
+            solve = lambda: solve_batch(sys_, pb, cfg, xb, ub)
         torch.cuda.synchronize(device)
         pdip_cuda.launches = 0
         t0 = time.perf_counter()
-        st = solve_batch(sys_, pb, cfg, xb, ub)
+        st = solve()
         torch.cuda.synchronize(device)
         row = {"seed": seed, "wall_s": time.perf_counter() - t0,
                "pdip_launches": pdip_cuda.launches,
                **solve_stats(sys_, pb, st)}
-        if main_path:
-            row["guards"] = main_path_failures(row)
-            if seed in JAX_MEAN_ITERS:
-                row["jax_mean_iters"] = JAX_MEAN_ITERS[seed]
-                row["delta_jax"] = row["mean_iters"] - JAX_MEAN_ITERS[seed]
+        if latency:
+            missed, jax_mean = batch_failures(row), None
+        else:
+            missed, jax_mean = guards(system, dtype, n, sigma, seed, row)
+        if missed is not None:
+            row["guards"] = missed
+        if jax_mean is not None:
+            row["jax_mean_iters"] = jax_mean
+            row["delta_jax"] = row["mean_iters"] - jax_mean
         t0 = time.perf_counter()
         batches = near_contact_batches(sys_, pb, xb, st.X)
         for b in batches:
@@ -725,8 +856,10 @@ def run_seeds(system: str, dtype, seeds, device="cuda", out=print,
                     outputs(kernel, batches))
         row.update(near_contact=v["totals"], batches=v["batches"],
                    near_contact_s=time.perf_counter() - t0)
-        out(f"[hard_lanes] {system} {name} seed {seed}, {n} scenario(s)"
-            f"{'' if cap is None else f' capped at {cap}'}: "
+        what = ("solve_single of probe_latency.scenario" if latency else
+                f"{n} scenario(s) at sigma {sigma:g}"
+                + ("" if cap is None else f" capped at {cap}"))
+        out(f"[hard_lanes] {system} {name} seed {seed}, {what}: "
             f"{row['wall_s']:.3f} s host-bound eager wall, "
             f"{row['pdip_launches']} PDIP launches; converged "
             f"{row['converged']}/{n} (not: "
@@ -736,7 +869,8 @@ def run_seeds(system: str, dtype, seeds, device="cuda", out=print,
             + (f" (JAX {row['jax_mean_iters']}, delta "
                f"{row['delta_jax']:+.4f})" if "delta_jax" in row else "")
             + f", max {row['max_iters']}; cold re-check max h "
-            f"{row['max_h']:.3e}, goal error {row['goal_err']:.3e}")
+            f"{row['max_h']:.3e}, goal error {row['goal_err']:.3e}; members "
+            f"equal: iterations {row['iters_equal']}, X {row['X_equal']}")
         out(f"[hard_lanes]   iters {row['iters']}")
         out(f"[hard_lanes]   {len(batches)} near-contact batches in "
             f"{row['near_contact_s']:.1f} s: "
@@ -751,6 +885,102 @@ def run_seeds(system: str, dtype, seeds, device="cuda", out=print,
                                      kernel)
             log_capture(row["capture"], out)
         res["seeds"].append(row)
+    return res
+
+
+def mpc_problem(device, S: int = MPC_S, N: int = MPC_N,
+                tick_iters: int = MPC_TICK_ITERS):
+    """(system, parameters (S, ...), config, x0s (S, nx), U0 (S, N-1, nu))
+    of ``bench_mpc.py``'s closed loop (``:93-102``): the f32 quadrotor at
+    horizon N, at most ``tick_iters`` ALTRO iterations a tick, S initial
+    states X0[0] + N(0, 0.02) from ``default_rng(0)``."""
+    from dcol_tpu_torch.systems import quadrotor
+
+    sys_, params, X0, U0, cfg = quadrotor.make_problem(torch.float32, device,
+                                                       N=N)
+    cfg = dataclasses.replace(cfg, max_iters=tick_iters)
+    rng = np.random.default_rng(0)
+    x0s = torch.as_tensor(X0[0].cpu().numpy()[None]
+                          + rng.normal(0, 0.02, (S, sys_.nx)),
+                          dtype=torch.float32, device=device)
+    pb = {k: v[None].expand((S,) + v.shape).contiguous()
+          for k, v in params.items()}
+    Ub = U0[None].expand((S,) + U0.shape).contiguous()
+    return sys_, pb, cfg, x0s, Ub
+
+
+def judge_mpc(sys_, pb, res, solve) -> Tuple[List[Dict], Dict]:
+    """The cold constraint batches at an MPC run's closed-loop states
+    ``res.X_applied`` (:func:`constraint_batches`, named "mpc X_applied
+    <group>"; the states at which ``h_applied`` is taken), through
+    ``solve`` and the plain version, judged by :func:`compare`; beside it
+    h = max over obstacles of 1 - alpha from ``solve``'s cold alphas at
+    each tick's state, against ``res.h_applied`` (what the ticks' solves
+    computed there; reported, not gated).  Returns the batches and the
+    verdict."""
+    from dcol_tpu_torch.ops.pdip import solve_socp
+
+    batches = constraint_batches(sys_, pb, res.X_applied, "mpc X_applied")
+    k_out = outputs(solve, batches)
+    v = compare(batches, outputs(solve_socp, batches), k_out)
+    S, T = res.X_applied.shape[:2]
+    h = torch.stack([(1 - k["alpha"].double()).reshape(S, T, -1).amax(-1)
+                     for k in k_out]).amax(0)[:, :-1]
+    v.update(h_cold_max=float(h.max()),
+             h_applied_max=float(res.h_applied.max()),
+             h_max_abs_diff=float((h - res.h_applied.cpu().double())
+                                  .abs().max()))
+    return batches, v
+
+
+def run_mpc(device="cuda", out=print, capture_dir=None,
+            steps: int = MPC_STEPS) -> Dict:
+    """``chip_smoke.py`` phase 8's closed loop (:func:`mpc_problem`) for
+    ``steps`` ticks through the kernel, then :func:`judge_mpc` on its
+    closed-loop states; with ``capture_dir``, the kernel-only far lanes are
+    written there.  ``failures`` lists non-finite states and the rule's
+    misses."""
+    from dcol_tpu_torch.ops import pdip_cuda
+    from dcol_tpu_torch.solver import mpc
+
+    device = _card(device)
+    sys_, pb, cfg, x0s, Ub = mpc_problem(device)
+    torch.cuda.synchronize(device)
+    pdip_cuda.launches = 0
+    t0 = time.perf_counter()
+    r = mpc.mpc_run(sys_, pb, cfg, x0s, Ub, steps)
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    res = {"device": torch.cuda.get_device_name(device), "S": x0s.shape[0],
+           "N": sys_.N, "tick_iters": cfg.max_iters, "steps": steps,
+           "wall_s": wall, "pdip_launches": pdip_cuda.launches,
+           "mean_iters": float(r.iters.double().mean()),
+           "converged_ticks": float(r.converged.double().mean()),
+           "finite": bool(torch.isfinite(r.X_applied).all()
+                          & torch.isfinite(r.U_applied).all())}
+    t0 = time.perf_counter()
+    batches, v = judge_mpc(sys_, pb, r, pdip_cuda.solve_socp_cuda)
+    res.update(v, judge_s=time.perf_counter() - t0)
+    out(f"[hard_lanes] MPC f32 quadrotor S={res['S']} N={res['N']}, "
+        f"{steps} ticks x <= {res['tick_iters']} iterations: {wall:.3f} s "
+        f"host-bound eager wall, {res['pdip_launches']} PDIP launches, mean "
+        f"iterations a tick {res['mean_iters']:.4f}, converged ticks "
+        f"{res['converged_ticks']:.4f}, max h_applied "
+        f"{res['h_applied_max']:.3e}")
+    out(f"[hard_lanes]   {len(res['batches'])} batches at X_applied in "
+        f"{res['judge_s']:.1f} s: " + describe_totals(res["totals"])
+        + f"; h from the kernel's cold alphas: max {res['h_cold_max']:.3e},"
+        f" max |h - h_applied| {res['h_max_abs_diff']:.3e}")
+    log_lanes(res["batches"], out)
+    res["failures"] = ([] if res["finite"] else
+                       ["non-finite states or controls"]) + verdict_failures(
+        res["totals"])
+    for m in res["failures"]:
+        out(f"[hard_lanes]   FAILS: {m}")
+    if capture_dir is not None:
+        res["capture"] = capture(batches, res["batches"], capture_dir,
+                                 pdip_cuda.solve_socp_cuda)
+        log_capture(res["capture"], out)
     return res
 
 
@@ -777,7 +1007,30 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="the solve's dtype (default float32)")
     ap.add_argument("--seeds", type=parse_seeds,
                     help="perturb_scenarios seeds, such as 1-6 (default 0)")
-    return ap.parse_args(argv)
+    ap.add_argument("--scenarios", type=int, metavar="N",
+                    help="scenarios a seed (default: the system's in RUNS)")
+    ap.add_argument("--sigma", type=float, metavar="S",
+                    help="perturb_scenarios' x0_sigma (default 0.02, or the "
+                         "system's in RUNS without --scenarios; 0: the "
+                         "nominal problem)")
+    ap.add_argument("--latency", action="store_true",
+                    help="each seed's one scenario through solve_single, "
+                         "as probe_latency builds it")
+    ap.add_argument("--mpc", action="store_true",
+                    help="the MPC closed loop and its measured states")
+    args = ap.parse_args(argv)
+    if args.scenarios is not None and args.scenarios < 1:
+        ap.error("--scenarios must be at least 1")
+    if args.sigma is not None and args.sigma < 0:
+        ap.error("--sigma must be at least 0")
+    if args.latency and (args.scenarios, args.sigma) != (None, None):
+        ap.error("--latency solves probe_latency's one scenario a seed: "
+                 "no --scenarios or --sigma")
+    if args.mpc and (args.system, args.dtype, args.seeds, args.scenarios,
+                     args.sigma, args.latency) != (None,) * 5 + (False,):
+        ap.error("--mpc runs chip_smoke.py phase 8's closed loop: it takes "
+                 "only --capture")
+    return args
 
 
 def main(argv=None):
@@ -785,7 +1038,15 @@ def main(argv=None):
 
     args = parse_args(argv)
     os.makedirs(nvcc_build.BUILD_DIR, exist_ok=True)
-    if (args.system, args.dtype, args.seeds) == (None,) * 3:
+    if args.mpc:
+        res = run_mpc(capture_dir=args.capture)
+        summary = {k: res[k] for k in (
+            "steps", "wall_s", "pdip_launches", "mean_iters",
+            "converged_ticks", "h_applied_max", "h_cold_max",
+            "h_max_abs_diff", "totals", "failures")}
+        stem = "hard_lanes_mpc"
+    elif (args.system, args.dtype, args.seeds, args.scenarios, args.sigma,
+          args.latency) == (None,) * 5 + (False,):
         res = run(capture_dir=args.capture)
         summary = {"traces": {n: {w: t["end"] for w, t in v.items()}
                               for n, v in res["traces"].items()},
@@ -798,13 +1059,17 @@ def main(argv=None):
     else:
         system, dtype = args.system or "quadrotor", args.dtype or "float32"
         res = run_seeds(system, getattr(torch, dtype), args.seeds or [0],
-                        capture_dir=args.capture)
-        summary = {"system": system, "dtype": dtype, "seeds": [
-            {k: r.get(k) for k in (
-                "seed", "converged", "n", "mean_iters", "delta_jax", "max_h",
-                "goal_err", "pdip_launches", "wall_s", "near_contact")}
-            for r in res["seeds"]], "failures": res["failures"]}
-        stem = f"hard_lanes_{system}_{dtype}"
+                        capture_dir=args.capture, n=args.scenarios,
+                        sigma=args.sigma, latency=args.latency)
+        summary = {"system": system, "dtype": dtype, "n": res["n"],
+                   "sigma": res["sigma"], "latency": args.latency,
+                   "seeds": [{k: r.get(k) for k in (
+                       "seed", "converged", "n", "mean_iters", "delta_jax",
+                       "max_iters", "max_h", "goal_err", "iters_equal",
+                       "X_equal", "pdip_launches", "wall_s", "near_contact")}
+                       for r in res["seeds"]], "failures": res["failures"]}
+        stem = f"hard_lanes_{system}_{dtype}_" + (
+            "latency" if args.latency else f"{res['n']}x{res['sigma']:g}")
     with open(os.path.join(nvcc_build.BUILD_DIR, stem + ".json"), "w") as f:
         json.dump(res, f, indent=1)
     print(json.dumps(summary), flush=True)

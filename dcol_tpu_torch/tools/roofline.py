@@ -1,9 +1,10 @@
 """Roofline accounting for the port's PDIP kernel on the card.
 
     python -m dcol_tpu_torch.tools.roofline {analyze,peak,kernel}
+    python -m dcol_tpu_torch.tools.roofline solve SYSTEM N [SIGMA]
     python -m dcol_tpu_torch.tools.roofline ab PARENT_CHECKOUT
 
-Port of ``tools/roofline.py``.  Four commands:
+Port of ``tools/roofline.py``.  Five commands:
 
 1. ``analyze`` (CPU, no card needed): a FLOP tally of the PDIP solve per
    problem, for every obstacle group of the three systems, taken from the
@@ -30,8 +31,15 @@ Port of ``tools/roofline.py``.  Four commands:
    the published memory rate (``bound_seconds``), the function's own type;
    the share of it; beside it the kernel's ceiling, the same work at the
    peak of the type the kernel iterates in (float64 for these layouts,
-   ``arith_of``); and the share of the measured float32 peak.
-4. ``ab`` (card): the same launches, saved once, through another
+   ``pdip_cuda.arith_dtype``); and the share of the measured float32
+   peak.
+4. ``solve`` (card): one f32 ``solve_batch`` of N scenarios of SYSTEM
+   (a ``hard_lanes`` system name) at ``perturb_scenarios(seed=0,
+   x0_sigma=SIGMA)`` (default 0.02) with the device time of each PDIP
+   launch and its bound, by start and batch size (``main_path_pdip``,
+   after one untimed solve): e.g. ``solve piano_mover 64``,
+   ``bench_systems.py``'s piano batch.
+5. ``ab`` (card): the same launches, saved once, through another
    checkout's kernel (the parent commit's, unpacked) and this one's, in
    turns parent, this, this, parent, one process each; in each process
    also the main path, one batch-128 f32 quadrotor ``solve_batch`` with
@@ -513,18 +521,6 @@ def start_of(warm, skip) -> str:
     return "cold" if warm is None else "warm" if skip is None else "warm+skip"
 
 
-def arith_of(dtype, lay):
-    """The type the PDIP kernel of the ``dcol_tpu_torch`` first on the path
-    iterates a ``dtype`` launch of layout ``lay`` in
-    (``pdip_cuda.arith_dtype``)."""
-    from dcol_tpu_torch.ops import pdip_cuda
-
-    # ``ab`` may time a checkout whose kernel predates arith_dtype and
-    # iterates in its operands' type; drop this fallback once no checkout
-    # compared against lacks it
-    return getattr(pdip_cuda, "arith_dtype", lambda dt, _: dt)(dtype, lay)
-
-
 def account(nv: int, lay, start: str, B: int, ms: float, iters_sum: float,
             n_skip: int = 0, peak_flops: Optional[float] = None,
             arith=None) -> Dict:
@@ -537,8 +533,10 @@ def account(nv: int, lay, start: str, B: int, ms: float, iters_sum: float,
     outputs, its plain version and the TPU kernel it replaces.  Beside it,
     ``arith_bound_ms`` is the kernel's own ceiling: the same operations at
     the peak of ``arith``, the type the kernel iterates in (default
-    :func:`arith_of`: float64 for a layout with an SOC block), and the
-    same bytes."""
+    ``pdip_cuda.arith_dtype``: float64 for a layout with an SOC block), and
+    the same bytes."""
+    from dcol_tpu_torch.ops import pdip_cuda
+
     f32 = torch.float32
     warm, skip = start != "cold", start == "warm+skip"
     key = (nv, lay, warm)
@@ -549,7 +547,7 @@ def account(nv: int, lay, start: str, B: int, ms: float, iters_sum: float,
     nbytes = ((B - n_skip) * pdip_bytes(nv, lay, f32, warm, skip)
               + n_skip * pdip_bytes(nv, lay, f32, skipped=True))
     if arith is None:
-        arith = arith_of(f32, lay)
+        arith = pdip_cuda.arith_dtype(f32, lay)
     bound, by = bound_seconds(flops, nbytes, f32)
     ceiling, _ = bound_seconds(flops, nbytes, arith)
     row = {"nv": nv, "layout": [lay.n_ort, lay.s1, lay.s2], "start": start,
@@ -638,17 +636,21 @@ def kernel(peak_flops: Optional[float] = None, device="cuda",
 SPIN_CYCLES = 200_000  # ~0.1 ms at the H100's 1,980 MHz
 
 
-def main_path_pdip(device="cuda") -> Dict:
-    """One batch-128 f32 quadrotor ``solve_batch`` (the main path, as
-    ``chip_smoke.py`` drives it) with the device time of every PDIP kernel
-    launch taken.  By (start, B): launches, kernel ms, problems, skipped
-    problems, PDIP iterations, and the bound from those counts; their sums;
-    and the solve's converged count, mean ALTRO iterations and wall.  It solves with the
+def main_path_pdip(device="cuda", system: str = "quadrotor",
+                   n: int = MAIN_BATCH, sigma: float = 0.02) -> Dict:
+    """One f32 ``solve_batch`` of ``n`` scenarios of ``system`` at
+    ``perturb_scenarios(seed=0, x0_sigma=sigma)`` (by default the main
+    path, the batch-128 quadrotor, as ``chip_smoke.py`` drives it) with the
+    device time of every PDIP kernel launch taken.  By (start, B):
+    launches, kernel ms, problems, skipped problems, PDIP iterations, and
+    the bound from those counts; their sums; and the solve's converged
+    count, mean ALTRO iterations and wall.  It solves with the
     ``dcol_tpu_torch`` found first on ``sys.path``, so ``ab`` can run it on
     another checkout's package."""
     from dcol_tpu_torch.ops import pdip_cuda
     from dcol_tpu_torch.parallel.batch import perturb_scenarios, solve_batch
-    from dcol_tpu_torch.systems import base, quadrotor
+    from dcol_tpu_torch.systems import base
+    from dcol_tpu_torch.tools import hard_lanes
 
     device = _require_cuda(device)
     calls, kernels = [], []
@@ -684,10 +686,10 @@ def main_path_pdip(device="cuda") -> Dict:
     pdip_cuda._lib = lambda *a: Timed(lib(*a))
     base.solve_socp_cuda = counted_solve
     try:
-        sys_, params, X0, U0, cfg = quadrotor.make_problem(torch.float32,
-                                                           device)
-        pb, xb, ub = perturb_scenarios(params, X0, U0, n=MAIN_BATCH, seed=0,
-                                       x0_sigma=0.02)
+        sys_, params, X0, U0, cfg = hard_lanes.system_module(
+            system).make_problem(torch.float32, device)
+        pb, xb, ub = perturb_scenarios(params, X0, U0, n=n, seed=0,
+                                       x0_sigma=sigma)
         torch.cuda.synchronize(device)
         t = time.perf_counter()
         st = solve_batch(sys_, pb, cfg, xb, ub)
@@ -710,6 +712,31 @@ def main_path_pdip(device="cuda") -> Dict:
     return {"wall_s": wall, "converged": int(st.converged.sum()),
             "mean_iters": float(st.iter.double().mean()), "by_shape": rows,
             **{k: sum(r[k] for r in rows) for k in keys}}
+
+
+def solve_table(system: str, n: int, sigma: float = 0.02, device="cuda",
+                out=print) -> Dict:
+    """:func:`main_path_pdip` of ``n`` scenarios of ``system`` at
+    ``sigma``, printed by (start, B): launches, summed and per-launch
+    device ms, bound and the kernel's ceiling.  The same solve runs once
+    before, untimed: its first launch of each specialisation builds and
+    loads the kernel, which the events would count."""
+    main_path_pdip(device, system=system, n=n, sigma=sigma)
+    res = main_path_pdip(device, system=system, n=n, sigma=sigma)
+    out(f"{system} f32, {n} scenarios at sigma {sigma:g}, seed 0: "
+        f"{res['launches']} PDIP launches, {res['ms']:.3f} ms "
+        f"({res['ms'] / res['launches']:.4f} ms a launch), bound "
+        f"{res['bound_ms']:.4f} ms ({100 * res['bound_ms'] / res['ms']:.2f}%"
+        f"), kernel's ceiling {res['arith_bound_ms']:.4f} ms; converged "
+        f"{res['converged']}/{n}, mean iterations {res['mean_iters']:.4f}, "
+        f"wall {res['wall_s']:.2f} s")
+    for r in res["by_shape"]:
+        out(f"  {r['start']:9s} B={r['B']:>7,}: {r['launches']} launches, "
+            f"{r['ms']:.3f} ms ({r['ms'] / r['launches']:.4f} a launch), "
+            f"bound {r['bound_ms']:.4f} ms, kernel's ceiling "
+            f"{r['arith_bound_ms']:.4f} ms; skipped {r['skipped']:,} of "
+            f"{r['problems']:,}")
+    return res
 
 
 # Run in a subprocess from the root of a checkout (this one or another
@@ -754,7 +781,8 @@ for e in ents:
     rows.append({"shape": e["shape"], "ms": ms,
                  "iters_sum": float(sol.iters.double().sum()),
                  "converged": int(sol.converged.sum()),
-                 "arith": str(timer.arith_of(torch.float32, e["lay"]))[6:]})
+                 "arith": str(pdip_cuda.arith_dtype(torch.float32,
+                                                    e["lay"]))[6:]})
 print(json.dumps({"launches": rows, "bits": digests,
                   "main": timer.main_path_pdip(dev)}))
 """
@@ -875,6 +903,9 @@ def main(argv=None):
         return peak_table()
     if cmd == "kernel":
         return kernel()
+    if cmd == "solve" and len(argv) > 2:
+        return solve_table(argv[1], int(argv[2]),
+                           *(float(a) for a in argv[3:4]))
     if cmd == "ab" and len(argv) > 1:
         from dcol_tpu_torch.ops import nvcc_build
 
@@ -885,7 +916,8 @@ def main(argv=None):
         print(f"per-launch times: {path}")
         return res
     raise SystemExit("usage: python -m dcol_tpu_torch.tools.roofline "
-                     "[analyze|peak|kernel|ab PARENT_CHECKOUT]")
+                     "[analyze|peak|kernel|solve SYSTEM N [SIGMA]|"
+                     "ab PARENT_CHECKOUT]")
 
 
 if __name__ == "__main__":

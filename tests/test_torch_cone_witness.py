@@ -2,7 +2,7 @@
 scenarios converge in the JAX package, beside the port.
 
     python -m tests.test_torch_cone_witness [--port] [--seed S]
-        [--dtype {float32,float64}]
+        [--dtype {float32,float64}] [--replicas N]
 
 Solves the 32 ``perturb_scenarios(seed=S, x0_sigma=0.02)`` cone scenarios
 (S = 0 and float32 unless told otherwise) with the JAX package on the CPU,
@@ -10,7 +10,9 @@ capped at CONE_MAX_ITERS ALTRO iterations as ``chip_smoke.py`` and
 ``dcol_tpu_torch.tools.hard_lanes`` cap the port's batch, and prints the
 converged scenarios and iteration counts as one JSON line.  ``--port``
 also runs the port's plain PDIP path on the CPU on the same scenarios.
-The run takes minutes, so it is a script; the test below only checks that
+``--replicas N``: the nominal problem replicated N times instead
+(``x0_sigma=0``, as ``benchmarks/bench_systems.py`` runs the cone), and
+whether every replica's X is bitwise the first's.  The run takes minutes, so it is a script; the test below only checks that
 both packages start from the same f32 scenarios at seeds 0-2."""
 
 import argparse
@@ -34,19 +36,19 @@ from dcol_tpu_torch.tools.hard_lanes import CONE_MAX_ITERS
 N_SCENARIOS = 32
 
 
-def _jax_problem(seed=0, dtype="float32"):
+def _jax_problem(seed=0, dtype="float32", n=N_SCENARIOS, sigma=0.02):
     sys_, params, X0, U0, cfg = jcone.make_problem(dtype=getattr(jnp, dtype))
-    pb, xb, ub = jbatch.perturb_scenarios(params, X0, U0, n=N_SCENARIOS,
-                                          seed=seed, x0_sigma=0.02)
+    pb, xb, ub = jbatch.perturb_scenarios(params, X0, U0, n=n,
+                                          seed=seed, x0_sigma=sigma)
     return sys_, pb, xb, ub, dataclasses.replace(
         cfg, max_iters=CONE_MAX_ITERS)
 
 
-def _port_problem(seed=0, dtype="float32"):
+def _port_problem(seed=0, dtype="float32", n=N_SCENARIOS, sigma=0.02):
     sys_, params, X0, U0, cfg = cone_through_wall.make_problem(
         getattr(torch, dtype), "cpu")
-    pb, xb, ub = batch.perturb_scenarios(params, X0, U0, n=N_SCENARIOS,
-                                         seed=seed, x0_sigma=0.02)
+    pb, xb, ub = batch.perturb_scenarios(params, X0, U0, n=n,
+                                         seed=seed, x0_sigma=sigma)
     return sys_, pb, xb, ub, dataclasses.replace(
         cfg, max_iters=CONE_MAX_ITERS)
 
@@ -62,10 +64,12 @@ def test_witness_scenarios_match(seed):
         np.testing.assert_array_equal(np.asarray(jpb[k]), pb[k].numpy())
 
 
-def _summary(converged, iters, wall):
+def _summary(converged, iters, wall, X):
     conv = [int(i) for i in np.flatnonzero(np.asarray(converged))]
-    return {"converged": len(conv), "of": N_SCENARIOS, "scenarios": conv,
-            "iters": [int(i) for i in np.asarray(iters)], "wall_s": wall}
+    X = np.asarray(X)
+    return {"converged": len(conv), "of": len(X), "scenarios": conv,
+            "iters": [int(i) for i in np.asarray(iters)], "wall_s": wall,
+            "X_equal": bool((X == X[:1]).all())}
 
 
 def main(argv=None):
@@ -74,6 +78,8 @@ def main(argv=None):
                     help="also solve through the port's plain version")
     ap.add_argument("--seed", type=int, default=0,
                     help="perturb_scenarios seed (default 0)")
+    ap.add_argument("--replicas", type=int, metavar="N",
+                    help="the nominal problem replicated N times instead")
     ap.add_argument("--dtype", choices=["float32", "float64"],
                     default="float32")
     args = ap.parse_args(argv)
@@ -81,18 +87,23 @@ def main(argv=None):
         jax.config.update("jax_enable_x64", True)
     tag = "f32" if args.dtype == "float32" else "f64"
     out = {"max_iters": CONE_MAX_ITERS, "seed": args.seed}
-    sys_, pb, xb, ub, cfg = _jax_problem(args.seed, args.dtype)
+    shape = ({} if args.replicas is None
+             else {"n": args.replicas, "sigma": 0.0})
+    out.update(shape)
+    sys_, pb, xb, ub, cfg = _jax_problem(args.seed, args.dtype, **shape)
     t0 = time.perf_counter()
     st = jbatch.solve_batch(sys_, pb, cfg, xb, ub)
     out[f"jax_{tag}_cpu"] = _summary(st.converged, st.iter,
-                                     time.perf_counter() - t0)
+                                     time.perf_counter() - t0, st.X)
     if args.port:
-        sys_, pb, xb, ub, cfg = _port_problem(args.seed, args.dtype)
+        sys_, pb, xb, ub, cfg = _port_problem(args.seed, args.dtype,
+                                              **shape)
         t0 = time.perf_counter()
         st = batch.solve_batch(sys_, pb, cfg, xb, ub)
         out[f"port_plain_{tag}_cpu"] = _summary(st.converged.numpy(),
                                                 st.iter.numpy(),
-                                                time.perf_counter() - t0)
+                                                time.perf_counter() - t0,
+                                                st.X.numpy())
     print(json.dumps(out))
 
 

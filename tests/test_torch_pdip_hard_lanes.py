@@ -250,8 +250,9 @@ def test_system_near_contact_batches_on_card(system, dtype):
     failing lane, none far from tol in the kernel only, no f64 batch short
     of plain's converged count."""
     dev = _card()
+    n, sigma, _ = hard_lanes.RUNS[system]
     sys_, pb, xb, ub, _ = hard_lanes.system_problem(
-        system, dtype, dev, seed=0, n=hard_lanes.RUNS[system][0])
+        system, dtype, dev, seed=0, n=n, sigma=sigma)
     X = altro.initial_rollout(sys_, pb, xb[:, 0], ub)
     batches = hard_lanes.near_contact_batches(sys_, pb, xb, X)
     res = hard_lanes.compare(

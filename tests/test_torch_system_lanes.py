@@ -46,9 +46,10 @@ COLD_ITERS_RTOL = 5e-3
 
 
 def _initial(system, dtype, n, seed=0):
-    """The system's scenarios and their initial rollouts."""
-    sys_, pb, xb, ub, _ = hard_lanes.system_problem(system, dtype, "cpu",
-                                                    seed=seed, n=n)
+    """The system's scenarios and their initial rollouts (n = 1: the
+    nominal problem, at sigma 0)."""
+    sys_, pb, xb, ub, _ = hard_lanes.system_problem(
+        system, dtype, "cpu", seed=seed, n=n, sigma=0.0 if n == 1 else 0.02)
     return sys_, pb, xb, altro.initial_rollout(sys_, pb, xb[:, 0], ub)
 
 
@@ -62,8 +63,9 @@ def test_system_near_contact_batches(system, n, dtype):
     in the group) and the scene's settings; the plain version against
     itself passes the rule of the dtype."""
     _, _, xb0, X = _initial(system, dtype, n)
-    sys_, pb, xb, Xs = hard_lanes.system_state(system, dtype, "cpu", seed=0,
-                                               n=n, solved=X)
+    sys_, pb, xb, Xs = hard_lanes.system_state(
+        system, dtype, "cpu", seed=0, n=n, sigma=0.0 if n == 1 else 0.02,
+        solved=X)
     assert torch.equal(xb, xb0) and Xs is X
     if n == 1:  # the nominal problem: no perturbation
         _, _, X0, _, _ = hard_lanes.system_module(system).make_problem(
@@ -254,7 +256,7 @@ def test_seeds_and_systems_cli():
                                   "float32", "--seeds", "0-2"])
     assert (args.system, args.dtype, args.seeds) == (
         "coneThroughWall", "float32", [0, 1, 2])
-    assert hard_lanes.RUNS["coneThroughWall"] == (32, 80)
+    assert hard_lanes.RUNS["coneThroughWall"] == (32, 0.02, 80)
     defaults = hard_lanes.parse_args([])
     assert (defaults.system, defaults.dtype, defaults.seeds) == (None,) * 3
     with pytest.raises(SystemExit):
