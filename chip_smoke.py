@@ -63,7 +63,10 @@ Phases, in order; any failure ends the run with a nonzero exit:
  12. profile: ``tools/profile_breakdown.py`` at batch 64, its component
      times and the device busy share of one ALTRO iteration;
  13. CLI: ``dcol_tpu_torch.main`` on the piano with ``--verbose --no-viz``
-     on the card by default: converged in 35 iterations;
+     on the card by default, twice: with ``--f64`` converged in exactly the
+     golden's iterations (35); in f32 (the default) converged, not failed,
+     the goal within 1e-4, and its iterations within 2 of the JAX
+     package's f32 count on the CPU (JAX_F32_PIANO_ITERS);
  14. latency: the f32 quadrotor (N=100, 11 obstacles), one scenario
      (``perturb_scenarios(n=1, seed=9, x0_sigma=0.02)``) through
      ``solve_single``: converged in 44-55 iterations and collision-free by a
@@ -90,12 +93,14 @@ Phases, in order; any failure ends the run with a nonzero exit:
      and the f32 piano's batch of 64 of benchmarks/bench_systems.py at
      seed 0 (x0_sigma 0.02; the one f32 layout the kernel iterates in f32;
      held to hard_lanes.piano_failures: 64/64 in 34-39 mean iterations,
-     the cold re-check); and the cold batches at phase 8's MPC closed-loop
-     states (hard_lanes.judge_mpc, where h_applied is taken); each judged
-     by hard_lanes.judge (an f32 batch the kernel iterates
-     in f64 by both rules), no lane failing, none far from tol in the
-     kernel only, no batch short of plain's count in f64; the
-     lanes captured from an earlier kernel's
+     the cold re-check), and its cone batch, the nominal problem x 64
+     capped at 80 (held to hard_lanes.cone_failures: 64/64, every
+     member's iterations equal and X bitwise equal); and the cold batches
+     at phase 8's MPC closed-loop states (hard_lanes.judge_mpc, where
+     h_applied is taken); each judged by hard_lanes.judge (an f32 batch
+     the kernel iterates in f64 by both rules), no lane failing, none
+     far from tol in the kernel only, no batch short of plain's count in
+     f64; the lanes captured from an earlier kernel's
      (tests/torch_fixtures/pdip_hard_lane_*.npz, each alone and in its
      warp), none failing the rule (both rules where the kernel iterates in
      f64), and the open lanes (pdip_open_lane_*.npz, known faults, none at
@@ -104,6 +109,10 @@ Phases, in order; any failure ends the run with a nonzero exit:
      group with a NaN c or G; cold, warm, warm+skip; every other member
      bitwise as without the poison); the f64 piano's 4 scenarios of
      tests/test_robustness.py:39 with scenario 2 poisoned, only it failing;
+     and, before the near-contact batches, 3 ALTRO iterations of one
+     scenario replicated as the main path's batch of 128 and as the
+     piano's batch of 64 (tools/replicas.py), every state field equal
+     across members;
   9. a JSON line of kernel results, then the last line
      {"ok": true, "device": {...}}.
 
@@ -137,6 +146,18 @@ RESUME_CAP = 20   # phase 10: AL iterations before the checkpoint
 PROX_RTOL, PROX_ATOL = 1e-8, 1e-8
 # phase 15: the near-contact f32 fixture (tests/torch_fixtures/)
 HARD_ALPHA_ATOL = 1e-4  # the kernel's alpha on its far lane against f64
+# phase 13: the JAX package's ALTRO iterations on the nominal f32 piano on
+# the CPU (its CLI's --f32 solve; tests/test_torch_piano_f32_count.py computes
+# it and the port's plain f32 count, which equal it), the band the CLI's f32
+# piano on the card is held to around it, and the goal error of the golden
+# test (tests/test_torch_altro.py)
+JAX_F32_PIANO_ITERS = 35
+F32_PIANO_ITERS_ATOL = 2
+GOAL_ATOL = 1e-4
+# phase 15: ALTRO iterations of replicated batches, every state field held
+# equal across members (tools/replicas.py): the main path's batch of 128 and
+# bench_systems.py's piano batch of 64
+REPLICA_ITERATIONS = 3
 # phase 3: PDIP iterations summed over the 7 groups' cold batches at Xref
 # for 128 scenarios (140,800 problems), as bench.py:114-150 counts them: the
 # JAX package's Pallas kernel counted 1,270,400 there (BENCH_r05.json);
@@ -208,11 +229,12 @@ class Run:
 
     def path(self, name, fn, kernels):
         """Run one path with every kernel's launch count set to 0 just
-        before it and read just after; fail unless each kernel in
-        ``kernels`` launched."""
+        before it and read just after, and the peak of allocated device
+        memory over it; fail unless each kernel in ``kernels`` launched."""
         from dcol_tpu_torch.ops import fma_peak, pdip_cuda
 
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         pdip_cuda.launches = 0
         pdip_cuda.tally.clear()
         fma_peak.launches = 0
@@ -220,12 +242,15 @@ class Run:
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
         counts = {"pdip": pdip_cuda.launches, "fma_peak": fma_peak.launches}
         by_shape = {" ".join(map(str, k)): n
                     for k, n in sorted(pdip_cuda.tally.items())}
         self.record["paths"][name] = dict(counts, wall_s=wall,
+                                          peak_bytes=peak,
                                           pdip_by_shape=by_shape)
-        log(f"[launches] {name}: {counts} in {wall:.3f} s")
+        log(f"[launches] {name}: {counts} in {wall:.3f} s, peak "
+            f"{peak / 2**20:.1f} MiB allocated")
         for k in kernels:
             check(counts[k] > 0, f"path {name!r} launched no {k} kernel")
         return out, wall
@@ -1006,21 +1031,49 @@ def phase_profile(run):
 
 def phase_cli(run):
     from dcol_tpu_torch import main as cli
+    from dcol_tpu_torch.systems import piano_mover
 
-    buf = io.StringIO()
+    gold = int(np.load(os.path.join(ROOT, "tests", "goldens",
+                                    "ref_piano_mover.npz"))["iters"])
+    rec = run.record["cli"] = {}
+    for flag, dtype in (("--f64", F64), (None, F32)):
+        argv = ["--system", "piano_mover", "--verbose", "--no-viz"]
+        argv += [flag] if flag else []
+        buf = io.StringIO()
 
-    def go():
-        with contextlib.redirect_stdout(buf):
-            cli.main(["--system", "piano_mover", "--verbose", "--no-viz"])
+        def go():
+            with contextlib.redirect_stdout(buf):
+                return cli.main(argv)
 
-    _, wall = run.path("cli piano --verbose --no-viz", go, ["pdip"])
-    lines = buf.getvalue().splitlines()
-    for ln in lines[:1] + lines[-3:]:
-        log(f"[cli] {ln}")
-    check("Convergence reached in 35 iterations." in lines
-          and "(converged=True, iters=35)" in lines[-1],
-          "the CLI's piano did not converge in 35 iterations")
-    run.record["cli"] = {"wall_s": wall, "last": lines[-1]}
+        st, wall = run.path("cli " + " ".join(argv[1:]), go, ["pdip"])
+        lines = buf.getvalue().splitlines()
+        for ln in lines[:1] + lines[-3:]:
+            log(f"[cli] {ln}")
+        n_it = int(st.iter[0])
+        xref = piano_mover.make_problem(dtype, run.dev)[1]["Xref"]
+        goal = float((st.X[0, -1] - xref[-1]).abs().max())
+        ok = (bool(st.converged[0]) and not bool(st.failed[0])
+              and f"(converged=True, iters={n_it})" in lines[-1])
+        rec[str(dtype)[6:]] = {"wall_s": wall, "iters": n_it,
+                               "goal_err": goal, "last": lines[-1]}
+        if dtype == F64:
+            # the reference's own exact pin, the golden's f64 count
+            check(ok and n_it == gold, f"the CLI's f64 piano: {n_it} "
+                                       f"iterations, golden {gold}")
+        else:
+            # by rule, not by the count the card happens to give: the
+            # golden test's goal error, and the JAX package's f32 count
+            # on the CPU within F32_PIANO_ITERS_ATOL
+            check(ok and goal <= GOAL_ATOL
+                  and abs(n_it - JAX_F32_PIANO_ITERS) <= F32_PIANO_ITERS_ATOL,
+                  f"the CLI's f32 piano: converged {bool(st.converged[0])}, "
+                  f"{n_it} iterations (JAX {JAX_F32_PIANO_ITERS} +- "
+                  f"{F32_PIANO_ITERS_ATOL}), goal error {goal:.3e}")
+    log(f"[cli] piano: f64 {rec['float64']['iters']} iterations (golden "
+        f"{gold}); f32 {rec['float32']['iters']} iterations (the JAX "
+        f"package's f32 count on the CPU {JAX_F32_PIANO_ITERS}, held within "
+        f"+-{F32_PIANO_ITERS_ATOL}), goal error "
+        f"{rec['float32']['goal_err']:.3e} (at most {GOAL_ATOL:g})")
 
 
 # -- 14. latency ---------------------------------------------------------------
@@ -1115,7 +1168,7 @@ def phase_hard_lanes(run):
     from dcol_tpu_torch.ops.pdip import solve_socp
     from dcol_tpu_torch.parallel.batch import perturb_scenarios, solve_batch
     from dcol_tpu_torch.systems import piano_mover
-    from dcol_tpu_torch.tools import hard_lanes
+    from dcol_tpu_torch.tools import hard_lanes, replicas
 
     dev = run.dev
     rec = run.record["hard_lanes"] = {}
@@ -1193,6 +1246,39 @@ def phase_hard_lanes(run):
     check(not piano_missed, f"hard lanes: the f32 piano's batch of {n} "
                             f"misses its guards: {piano_missed}")
     run.solved[("piano_mover", F32, 0, n, sigma)] = (xb, stp.X)
+
+    # replicated scenarios (tools/replicas.py): bench_systems.py's cone
+    # batch, its nominal problem x 64 capped at 80 (hard_lanes.cone_failures:
+    # every member converged in equal iterations, X bitwise equal), then 3
+    # ALTRO iterations of the main path's batch of 128 and the piano's of
+    # 64, each scenario replicated, every state field equal across members
+    n, sigma = hard_lanes.SYSTEMS_BATCH, hard_lanes.CONE_SIGMA
+    sys_c, pb, xb, ub, cfg = hard_lanes.system_problem(
+        "coneThroughWall", F32, dev, seed=0, n=n, sigma=sigma,
+        max_iters=hard_lanes.CONE_MAX_ITERS)
+    stc, wall = run.path(f"hard lanes f32 cone solve_batch x{n}",
+                         lambda: solve_batch(sys_c, pb, cfg, xb, ub), ["pdip"])
+    stats = hard_lanes.solve_stats(sys_c, pb, stc)
+    nX, dX = replicas.parted(stc.X)
+    log(f"[hard] f32 cone, its nominal problem x{n} (bench_systems.py's "
+        f"batch): {wall:.3f} s, converged {stats['converged']}/{n}, "
+        f"iterations {sorted(set(stats['iters']))} (JAX "
+        f"{hard_lanes.CONE_JAX_MEAN_ITERS}), X parted in {nX} members (max "
+        f"{dX:.3e}); cold re-check max h {stats['max_h']:.3e}, goal error "
+        f"{stats['goal_err']:.3e}")
+    rec["cone_replicas"] = dict(stats, wall_s=wall, X_parted=nX, max_dX=dX)
+    cone_missed = hard_lanes.cone_failures(stats)
+    check(not cone_missed, f"hard lanes: the f32 cone's replicated batch of "
+                           f"{n} misses its guards: {cone_missed}")
+    run.solved[("coneThroughWall", F32, 0, n, sigma)] = (xb, stc.X)
+    for name in ("quadrotor x128", "piano x64"):
+        e = dataclasses.replace(next(x for x in replicas.SWEEP
+                                     if x.name == name),
+                                iters=REPLICA_ITERATIONS)
+        row, _ = run.path(f"replicas {e.name}, {e.iters} iterations",
+                          lambda: replicas.run_entry(e, dev, log), ["pdip"])
+        rec[f"replicas {e.name}"] = row
+        check(not row["failures"], f"replicas {e.name}: {row['failures']}")
     rec["near_contact"], missed = {}, []
     for (system, dtype, seed, n, sigma), (X0_s, X_s) in run.solved.items():
         label = f"{system} {str(dtype)[6:]} x{n}"

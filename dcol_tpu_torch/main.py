@@ -9,7 +9,8 @@ is none).  Without ``--batch`` it solves the system once, prints the
 iteration table (live with ``--verbose``) and renders the diagnostic plots
 and scene under ``result_images/<system>/`` unless ``--no-viz``; with
 ``--batch N`` it solves N perturbed scenarios and prints a summary.  The
-default dtype is float32 on cuda and float64 on cpu.
+default dtype is float32 on cuda and float64 on cpu.  :func:`main` returns
+the solved state (batched, one scenario without ``--batch``).
 """
 
 from __future__ import annotations
@@ -63,7 +64,7 @@ def main(argv=None):
             st = solve_batch(sys_, params_b, cfg, X0_b, U0_b)
         print(f"batch of {args.batch} solved in {t.elapsed:.2f}s on "
               f"{args.device}: {summarize(st)}")
-        return
+        return st
 
     print(f"Starting ALTRO optimization ({args.system}, {dtype}, "
           f"{args.device})...")
@@ -101,6 +102,7 @@ def main(argv=None):
                 [hu for _, hu in con_hist])
         viz.visualize_scene(args.system, sys_, params, st)
         print(f"Wrote plots + scene renders to result_images/{args.system}/")
+    return st
 
 
 if __name__ == "__main__":

@@ -181,8 +181,18 @@ def _soc_nt(s, z):
     gamma = torch.sqrt((1.0 + torch.sum(sbar * zbar, dim=-1)) / 2.0)
     Jz = torch.cat([zbar[..., :1], -zbar[..., 1:]], dim=-1)
     wbar = (sbar + Jz) / (2.0 * gamma[..., None])
-    eta = (js / jz) ** 0.25
-    return eta, wbar
+    return _fourth_root(js / jz), wbar
+
+
+def _fourth_root(r):
+    """``r ** 0.25`` as two square roots, each correctly rounded on every
+    device; below float64 they run in float64, which rounds to the nearest
+    fourth root.  ATen's CPU pow rounds the vectorised body of a tensor and
+    its scalar tail differently, so identical problems in one batch would
+    part."""
+    if r.dtype == torch.float64:
+        return torch.sqrt(torch.sqrt(r))
+    return torch.sqrt(torch.sqrt(r.double())).to(r.dtype)
 
 
 def nt_scalings(lay: ConeLayout, s, z) -> NTScaling:

@@ -36,11 +36,12 @@ _JVP_LOCK = threading.Lock()
 
 
 def lagrangian_gx(G, x):
-    """G x of each problem, G (..., nr, nv) and x (..., nv): a batched
-    matmul.  On the card it rounds a problem by its position in the batch,
-    so replicated scenarios part (``tools/replicas.py``; ROADMAP Queue
-    C)."""
-    return (G @ x[..., None])[..., 0]
+    """G x of each problem, G (..., nr, nv) and x (..., nv), as the JAX
+    package forms it (``dcol_tpu/systems/base.py``, ``lag_vec``): products
+    summed over the short nv dim.  A batched matmul would round a problem
+    by its position in the batch on the card, so identical scenarios in
+    one batch would part (``tools/replicas.py``)."""
+    return torch.sum(G * x[..., None, :], dim=-1)
 
 
 def jvp(fn, primals, tangents):

@@ -416,16 +416,16 @@ def system_module(system: str):
 
 def system_problem(system: str, dtype, device, *, seed: int, n: int,
                    sigma: float = PERTURB_SIGMA,
-                   max_iters: Optional[int] = None):
+                   max_iters: Optional[int] = None, N: Optional[int] = None):
     """(system, scenario parameters, X0, U0, config) of ``n`` scenarios of
     ``system`` in ``dtype``: ``perturb_scenarios(n, seed, x0_sigma=sigma)``,
     as ``bench.py`` and ``benchmarks/bench_systems.py`` build them, for any
     n (``sigma = 0``: the nominal problem, replicated); the ALTRO cap
-    ``max_iters`` if given."""
+    ``max_iters`` and the horizon ``N`` if given."""
     from dcol_tpu_torch.parallel.batch import perturb_scenarios
 
-    sys_, params, X0, U0, cfg = system_module(system).make_problem(dtype,
-                                                                   device)
+    sys_, params, X0, U0, cfg = system_module(system).make_problem(
+        dtype, device, **({} if N is None else {"N": N}))
     pb, xb, ub = perturb_scenarios(params, X0, U0, n=n, seed=seed,
                                    x0_sigma=sigma)
     if max_iters is not None:

@@ -21,7 +21,9 @@ with CUDA events over ``reps`` calls after a warm-up
   * ``dynamics_jacobians``.
 
 The components overlap (the full iteration holds the others), so they do
-not sum to ``full_iteration``.  Then one ``full_iteration`` runs under
+not sum to ``full_iteration``.  Each one's peak of allocated device memory
+(``torch.cuda.max_memory_allocated`` over one call, the state it reads
+included) is given beside its time.  Then one ``full_iteration`` runs under
 ``torch.profiler`` (:func:`dcol_tpu_torch.utils.metrics.trace`): its device
 busy share is the summed time of the card's kernels, copies and sets over
 the window's wall, and the 10 device operations with the most time are
@@ -106,6 +108,15 @@ def components(sys_, params_b, cfg, st) -> dict:
     }
 
 
+def peak_bytes(fn) -> int:
+    """``torch.cuda.max_memory_allocated`` over one call of ``fn``."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated()
+
+
 def device_profile(fn, log_dir: str = LOG_DIR) -> dict:
     """One call of ``fn`` under the profiler: wall, summed device time,
     busy share and the top device operations by time."""
@@ -142,6 +153,7 @@ def run(batch: int = 64, device="cuda", reps: int = REPS, out=print) -> dict:
     comps = components(sys_, params_b, cfg, st)
     times = {name: roofline.time_launch(fn, reps)[0]
              for name, fn in comps.items()}
+    peaks = {name: peak_bytes(fn) for name, fn in comps.items()}
     prof = device_profile(comps["full_iteration"])
     # the profiler slows the host's launches far more than the card's
     # kernels: the device time over the unprofiled iteration estimates the
@@ -151,7 +163,8 @@ def run(batch: int = 64, device="cuda", reps: int = REPS, out=print) -> dict:
         f"(ms per call, CUDA events over {reps} calls; components timed "
         "alone overlap and do not sum to full_iteration) ==")
     for name, ms in times.items():
-        out(f"  {name:26s} {ms:10.3f} ms")
+        out(f"  {name:26s} {ms:10.3f} ms  peak {peaks[name] / 2**20:9.1f} "
+            "MiB allocated")
     out(f"  one full_iteration under torch.profiler: {prof['wall_ms']:.3f} "
         f"ms wall, {prof['device_ms']:.3f} ms on the card in "
         f"{prof['device_ops']} operations: busy {100 * prof['busy_share']:.2f}"
@@ -160,7 +173,8 @@ def run(batch: int = 64, device="cuda", reps: int = REPS, out=print) -> dict:
     for op in prof["top_ops"]:
         out(f"    {op['ms']:9.3f} ms  {op['calls']:6d} x  {op['name'][:90]}")
     return {"batch": batch, "advance_iters": ADVANCE_ITERS, "reps": reps,
-            "components": times, "full_iteration_profile": prof}
+            "components": times, "peak_bytes": peaks,
+            "full_iteration_profile": prof}
 
 
 def main(argv=None):

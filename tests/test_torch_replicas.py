@@ -1,20 +1,23 @@
-"""Identical scenarios in one batch, and where the card rounds them apart.
+"""Identical scenarios in one batch come out equal.
 
 ``benchmarks/bench_systems.py`` runs the cone's nominal problem replicated
-64 times.  On the card the replicas part after the first iteration, though
-every PDIP launch gives them identical solutions: two host-side ops round
-a problem by its position in the batch.
+64 times, and a scenario's result must not depend on where it sits in the
+batch.  Three ops rounded a problem by its position, and each now computes
+in a form that does not:
 
-- The cost's sums over (knots, components) in one reduction, which the
-  card groups by each row's address: repaired, the sums now go one dim at
-  a time (``solver/altro.py::_sum_knots``).
-- The envelope gradients' ``G @ x`` as a batched matmul
-  (``systems/base.py::lagrangian_gx``): open (ROADMAP Queue C).  The elementwise contraction, the JAX package's form, keeps
-  the replicas equal, but it also moves the f32 CLI piano on the card from
-  35 ALTRO iterations, which ``chip_smoke.py`` phase 13 pins, to 36.
+- the cost's sums over (knots, components), one dim at a time
+  (``solver/altro.py::_sum_knots``); on the card one reduction grouped
+  each row by its address;
+- the envelope Lagrangian's G x, the JAX package's elementwise contraction
+  (``systems/base.py::lagrangian_gx``); on the card a batched matmul parted
+  47 of 64 cone replicas;
+- the plain PDIP version's SOC fourth root, two square roots
+  (``ops/cones.py::_soc_nt``); on the CPU ATen's pow rounds a tensor's
+  vectorised body and its scalar tail differently.
 
-The CPU tests run a few replicas; the ``cuda`` ones run 64 on the card and
-skip without one.
+The CPU tests run a few replicas (``tools/replicas.py``'s sweep at its
+small size: ``tests/test_torch_replica_sweep.py``); the ``cuda`` ones run
+64 on the card and skip without one.
 """
 
 import pytest
@@ -77,12 +80,11 @@ def test_replicated_iterations_stay_equal_on_cpu():
 
 
 @pytest.mark.cuda
-def test_envelope_matmul_parts_replicas_on_card():
-    """The open fault, shown: at the replicated cone's first polish the
-    envelope Lagrangian's G x, as the port forms it (a batched matmul),
-    differs across the 64 replicas on the card, while the elementwise
-    contraction of the same tangents does not.  The repair turns this
-    test into one that the port's gradients are equal."""
+def test_envelope_gx_keeps_replicas_equal_on_card():
+    """At the replicated cone's first polish on the card, the envelope
+    Lagrangian's G x as the port forms it (``lagrangian_gx``, the JAX
+    package's contraction) is equal across the 64 replicas, and so are
+    the envelope gradients (a batched matmul parted 47 of them)."""
     dev, n = _device("cuda")
     sys_, pb, _, st = _replicated_cone(dev, n)
     scene = sys_.scene
@@ -91,8 +93,9 @@ def test_envelope_matmul_parts_replicas_on_card():
         rs, ps, pb["obs_r"], pb["obs_p"], st.warm,
         margin=scene.opts.polish_margin)
     S, T = rs.shape[:2]
-    x = sols[0].x.reshape(S, T, -1, sols[0].x.shape[-1])
-    assert _members_equal(x)
+    xs = tuple(s.x.reshape(S, T, -1, s.x.shape[-1]) for s in sols)
+    zs = tuple(s.z.reshape(S, T, -1, s.z.shape[-1]) for s in sols)
+    assert all(_members_equal(x) for x in xs + zs)
     basis = torch.eye(6, dtype=F32, device=dev)[:, None, None, :]
     shape6 = (6,) + rs.shape
     _, (_, dG, _) = jvp(
@@ -103,8 +106,27 @@ def test_envelope_matmul_parts_replicas_on_card():
          basis[..., 3:].expand(shape6).contiguous()))
     first = lambda t: t.movedim(0, 1)  # replicas first
     assert _members_equal(first(dG))
-    assert _members_equal(first(torch.sum(dG * x[..., None, :], dim=-1)))
-    assert not _members_equal(first(lagrangian_gx(dG, x)))
+    assert _members_equal(first(lagrangian_gx(dG, xs[0])))
+    d_r, d_p = scene._envelope_grads(rs, ps, pb["obs_r"], pb["obs_p"], xs,
+                                     zs)
+    assert _members_equal(d_r) and _members_equal(d_p)
+
+
+@pytest.mark.cuda
+def test_replicated_cone_solve_on_card():
+    """bench_systems.py's cone batch, the nominal problem x 64 capped at
+    80, through the kernel: ``hard_lanes.cone_failures`` finds nothing
+    (64/64 converged, every member's iterations equal and X bitwise
+    equal, the cold re-check)."""
+    from dcol_tpu_torch.parallel.batch import solve_batch
+
+    dev, n = _device("cuda")
+    sys_, pb, xb, ub, cfg = hard_lanes.system_problem(
+        "coneThroughWall", F32, dev, seed=0, n=n, sigma=hard_lanes.CONE_SIGMA,
+        max_iters=hard_lanes.CONE_MAX_ITERS)
+    st = solve_batch(sys_, pb, cfg, xb, ub)
+    stats = hard_lanes.solve_stats(sys_, pb, st)
+    assert hard_lanes.cone_failures(stats) == [], stats["iters"]
 
 
 def test_sum_knots_is_the_sum():
@@ -116,15 +138,19 @@ def test_sum_knots_is_the_sum():
 
 def test_replicas_tool_on_cpu():
     """tools/replicas.py's probes on the CPU, where nothing parts: the
-    plain version gives replicated PDIP batches identical outputs, and the
-    first polish and the cost after one iteration are equal under every
-    form."""
+    plain version gives replicated PDIP batches identical outputs, and no
+    step of the replicated cone's first iteration parts."""
     dev = torch.device("cpu")
     assert replicas.parted(torch.tensor([[1.0, 2.0], [1.0, 2.5]])) == (
         1, 0.5)
     pdip = replicas.pdip_replicas(dev, 2)
     assert len(pdip) == 6 and all(v["parted"] == 0 for v in pdip.values())
-    for probe in (replicas.first_polish(dev, 2),
-                  replicas.cost_after_one(dev, 2)):
-        assert all(v[0] == 0 for v in probe.values()), probe
-
+    sys_, pb, cfg, st = _replicated_cone(dev, 2)
+    rows = replicas.stages(sys_, pb, cfg, st)
+    names = [name.split(":")[0] for name, _, _ in rows]
+    for step in ("rollout", "dynamics Jacobians", "polish PDIP",
+                 "lagrangian_gx", "envelope gradients", "Riccati",
+                 "line search alpha 1..1", "line search alpha 0.5..0.0625",
+                 "accepted step", "AL update"):
+        assert step in names, step
+    assert replicas.first_parted(rows) is None, rows

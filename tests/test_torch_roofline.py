@@ -210,7 +210,7 @@ def test_pdip_work_warm_start():
     lay = ConeLayout(4, 4, 4)
     cold, warm = (roofline.pdip_work(5, lay, torch.float32, w)
                   for w in (False, True))
-    assert warm[1] == cold[1] == 3843.0
+    assert warm[1] == cold[1] == 3845.0
     assert cold[0] == 1351.0 and 0 < warm[0] < cold[0] / 4
 
 
