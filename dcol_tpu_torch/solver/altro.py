@@ -32,6 +32,7 @@ import torch
 
 from dcol_tpu_torch.ops import chol
 from dcol_tpu_torch.systems.base import jvp, scenario_view
+from dcol_tpu_torch.utils.trace import span
 
 # forward-difference step of the reference's dynamics Jacobians
 # (ALTRO.py:77-100), taken when a system is built with fd_jacobians=True
@@ -231,11 +232,14 @@ def backward_pass(sys, params, X, U, mu, mux, lambd, rho, reg, warm=None,
     N, nx = sys.N, sys.nx
     dt, dev = X.dtype, X.device
     Q, R, Qf = params["Q"], params["R"], params["Qf"]
-    A, B = dynamics_jacobians(sys, params, X[:, :-1], U)
+    with span("altro.backward.jacobians"):
+        A, B = dynamics_jacobians(sys, params, X[:, :-1], U)
 
     # constraint values + envelope gradients at X: one PDIP batch per group,
     # warm-started from the accepted candidate's solution at this exact X
-    hx, gx, _ = sys.constraints_x_vg_traj(params, X, warm=warm, skip=skip)
+    with span("altro.backward.polish"):
+        hx, gx, _ = sys.constraints_x_vg_traj(params, X, warm=warm,
+                                              skip=skip)
     hu = sys.constraints_u(params, U)
     gu = sys.constraints_u_grad(dt, dev)               # (ncu, nu)
     mask_x = eval_mask(mux, hx)                        # (S, N, ncx)
@@ -252,42 +256,47 @@ def backward_pass(sys, params, X, U, mu, mux, lambd, rho, reg, warm=None,
     l_u = _mv(R, dU) + torch.sum(gu * wu[..., None], dim=-2)
     l_uu = R[:, None] + r4 * _mtm(gu * mask_u[..., None], gu)
 
-    # terminal value function incl. AL state + goal terms (ALTRO.py:267-287)
-    r1, r2 = scenario_view(rho, 2), scenario_view(rho, 3)
-    I_nx = torch.eye(nx, dtype=dt, device=dev)
-    Vx = (_mv(Qf, dX[:, -1])
-          + _mtv(gx[:, -1], mux[:, -1] + r1 * mask_x[:, -1] * hx[:, -1])
-          + lambd + r1 * dX[:, -1])
-    Vxx = (Qf + r2 * _mtm(gx[:, -1] * mask_x[:, -1][..., None], gx[:, -1])
-           + r2 * I_nx)
+    with span("altro.backward.riccati"):
+        # terminal value function incl. AL state + goal terms
+        # (ALTRO.py:267-287)
+        r1, r2 = scenario_view(rho, 2), scenario_view(rho, 3)
+        I_nx = torch.eye(nx, dtype=dt, device=dev)
+        Vx = (_mv(Qf, dX[:, -1])
+              + _mtv(gx[:, -1], mux[:, -1] + r1 * mask_x[:, -1] * hx[:, -1])
+              + lambd + r1 * dX[:, -1])
+        Vxx = (Qf + r2 * _mtm(gx[:, -1] * mask_x[:, -1][..., None],
+                              gx[:, -1])
+               + r2 * I_nx)
 
-    reg_I = scenario_view(reg, 3) * I_nx
-    dJ = torch.zeros_like(rho)
-    Ks, ks = [None] * (N - 1), [None] * (N - 1)
-    for t in reversed(range(N - 1)):
-        A_t, B_t = A[:, t], B[:, t]
-        lu_t, luu_t = l_u[:, t], l_uu[:, t]
-        Vxx_r = Vxx + reg_I
-        VA = Vxx_r @ A_t
-        VB = Vxx_r @ B_t
-        Qu = lu_t + _mtv(B_t, Vx)
-        Quu = luu_t + _mtm(B_t, VB)
-        Qux = _mtm(B_t, VA)
-        L = chol.chol_factor(Quu)
-        k_t = chol.chol_solve(L, Qu)
-        K_t = chol.chol_solve(L[:, None], Qux.transpose(-1, -2)).transpose(-1, -2)
-        Abar = A_t - B_t @ K_t
-        Vxx_new = l_xx[:, t] + _mtm(K_t, luu_t @ K_t) + _mtm(Abar, Vxx @ Abar)
-        Bk = (B_t @ k_t[..., None])[..., 0]
-        Vx = (l_x[:, t] - _mtv(K_t, lu_t)
-              + _mtv(K_t, (luu_t @ k_t[..., None])[..., 0])
-              + _mtv(Abar, Vx - (Vxx @ Bk[..., None])[..., 0]))
-        Vxx = Vxx_new
-        dJ = dJ + torch.sum(Qu * k_t, dim=-1)
-        Ks[t], ks[t] = K_t, k_t
-    K = torch.stack(Ks, dim=1)
-    k = torch.stack(ks, dim=1)
-    kmax = torch.amax(torch.linalg.vector_norm(k, dim=-1), dim=-1)
+        reg_I = scenario_view(reg, 3) * I_nx
+        dJ = torch.zeros_like(rho)
+        Ks, ks = [None] * (N - 1), [None] * (N - 1)
+        for t in reversed(range(N - 1)):
+            A_t, B_t = A[:, t], B[:, t]
+            lu_t, luu_t = l_u[:, t], l_uu[:, t]
+            Vxx_r = Vxx + reg_I
+            VA = Vxx_r @ A_t
+            VB = Vxx_r @ B_t
+            Qu = lu_t + _mtv(B_t, Vx)
+            Quu = luu_t + _mtm(B_t, VB)
+            Qux = _mtm(B_t, VA)
+            L = chol.chol_factor(Quu)
+            k_t = chol.chol_solve(L, Qu)
+            K_t = chol.chol_solve(L[:, None],
+                                  Qux.transpose(-1, -2)).transpose(-1, -2)
+            Abar = A_t - B_t @ K_t
+            Vxx_new = (l_xx[:, t] + _mtm(K_t, luu_t @ K_t)
+                       + _mtm(Abar, Vxx @ Abar))
+            Bk = (B_t @ k_t[..., None])[..., 0]
+            Vx = (l_x[:, t] - _mtv(K_t, lu_t)
+                  + _mtv(K_t, (luu_t @ k_t[..., None])[..., 0])
+                  + _mtv(Abar, Vx - (Vxx @ Bk[..., None])[..., 0]))
+            Vxx = Vxx_new
+            dJ = dJ + torch.sum(Qu * k_t, dim=-1)
+            Ks[t], ks[t] = K_t, k_t
+        K = torch.stack(Ks, dim=1)
+        k = torch.stack(ks, dim=1)
+        kmax = torch.amax(torch.linalg.vector_norm(k, dim=-1), dim=-1)
     return K, k, dJ, kmax
 
 
@@ -298,16 +307,18 @@ def backward_pass(sys, params, X, U, mu, mux, lambd, rho, reg, warm=None,
 def rollout(sys, params, X, U, K, k, alpha):
     """Closed-loop rollouts for per-scenario candidate step sizes
     alpha (S, C): returns Xn (S, C, N, nx), Un (S, C, N-1, nu)."""
-    x = X[:, None, 0].expand(alpha.shape + X.shape[-1:])
-    a = alpha[..., None]
-    xs, us = [x], []
-    for t in range(sys.N - 1):
-        u = (U[:, None, t] - (K[:, None, t] @ (x - X[:, None, t])[..., None])[..., 0]
-             - a * k[:, None, t])
-        x = sys.discrete_dynamics(params, x, u)
-        xs.append(x)
-        us.append(u)
-    return torch.stack(xs, dim=2), torch.stack(us, dim=2)
+    with span("altro.rollout"):
+        x = X[:, None, 0].expand(alpha.shape + X.shape[-1:])
+        a = alpha[..., None]
+        xs, us = [x], []
+        for t in range(sys.N - 1):
+            u = (U[:, None, t]
+                 - (K[:, None, t] @ (x - X[:, None, t])[..., None])[..., 0]
+                 - a * k[:, None, t])
+            x = sys.discrete_dynamics(params, x, u)
+            xs.append(x)
+            us.append(u)
+        return torch.stack(xs, dim=2), torch.stack(us, dim=2)
 
 
 def initial_rollout(sys, params, x0, U):
@@ -374,28 +385,30 @@ def forward_pass(sys, params, cfg, X, U, K, k, mu, mux, lambd, rho, hx, hu,
     sel = (X, U, hx, hu, old_cost, torch.zeros_like(old_cost), warm)
 
     # phase 1: the full step alpha = 1 alone
-    a1 = alphas_all[:1].expand(S, 1)
-    skip1 = None
-    if active is not None:
-        a1 = torch.where(active[:, None], a1, torch.zeros_like(a1))
-        skip1 = ~active
-    ok1, cand1, w = eval_candidates(a1, valid_all[:1], warm, skip=skip1)
-    sel = _where(ok1, cand1, sel)
-    found = ok1 if active is None else (ok1 | ~active)
+    with span("altro.forward.probe"):
+        a1 = alphas_all[:1].expand(S, 1)
+        skip1 = None
+        if active is not None:
+            a1 = torch.where(active[:, None], a1, torch.zeros_like(a1))
+            skip1 = ~active
+        ok1, cand1, w = eval_candidates(a1, valid_all[:1], warm, skip=skip1)
+        sel = _where(ok1, cand1, sel)
+        found = ok1 if active is None else (ok1 | ~active)
 
     # phase 2: chunks of C candidates {1/2, 1/4, ...} while any scenario
     # still searches
-    ci = 0
-    while ci < n_chunks and not bool(found.all()):
-        lo = 1 + ci * C
-        a_c = alphas_all[lo:lo + C].expand(S, C)
-        a_c = torch.where(found[:, None], sel[5][:, None], a_c)
-        w_in = _where(found, sel[6], w)
-        any_ok, cand, w = eval_candidates(a_c, valid_all[lo:lo + C], w_in,
-                                          skip=found)
-        sel = _where(any_ok & ~found, cand, sel)
-        found = found | any_ok
-        ci += 1
+    for ci in range(n_chunks):
+        with span("altro.forward.chunk"):
+            if bool(found.all()):
+                break
+            lo = 1 + ci * C
+            a_c = alphas_all[lo:lo + C].expand(S, C)
+            a_c = torch.where(found[:, None], sel[5][:, None], a_c)
+            w_in = _where(found, sel[6], w)
+            any_ok, cand, w = eval_candidates(a_c, valid_all[lo:lo + C],
+                                              w_in, skip=found)
+            sel = _where(any_ok & ~found, cand, sel)
+            found = found | any_ok
     # on total failure the fallback (alpha = 0, unchanged trajectories)
     # keeps the INCOMING warm: the converged solution at the unchanged X
     return sel
@@ -414,38 +427,39 @@ def make_initial_state(sys, params, cfg, X0, U0, duals=None,
     state from a previous nearby solve (MPC warm starts across ticks); the
     defaults are the reference's cold start, zero duals and ``cfg.rho0``
     (ALTRO.py:396-403)."""
-    S = X0.shape[0]
-    dt, dev = U0.dtype, U0.device
-    X = initial_rollout(sys, params, X0[:, 0].to(dt), U0)
-    hx, hu, warm = eval_constraints(sys, params, X, U0)
-    if duals is None:
-        mu = torch.zeros((S, sys.N - 1, sys.ncu), dtype=dt, device=dev)
-        mux = torch.zeros((S, sys.N, sys.ncx), dtype=dt, device=dev)
-        lambd = torch.zeros((S, sys.nx), dtype=dt, device=dev)
-    else:
-        mu, mux, lambd = (torch.as_tensor(d, dtype=dt, device=dev)
-                          for d in duals)
-        want = ((S, sys.N - 1, sys.ncu), (S, sys.N, sys.ncx), (S, sys.nx))
-        got = (tuple(mu.shape), tuple(mux.shape), tuple(lambd.shape))
-        if got != want:
-            raise ValueError(f"duals (mu, mux, lambd) have shapes {got}, "
-                             f"expected {want}")
-    if rho is None:
-        rho0 = torch.full((S,), cfg.rho0, dtype=dt, device=dev)
-    else:
-        rho0 = torch.as_tensor(rho, dtype=dt, device=dev).expand(S).clone()
-    J0 = total_cost(sys, params, X, U0, hx, hu, mu, mux, lambd, rho0)
-    z = torch.zeros((S,), dtype=dt, device=dev)
-    m = Metrics(*(torch.zeros((S, cfg.metrics_len), dtype=dt, device=dev)
-                  for _ in range(7)))
-    return AltroState(
-        X=X, U=U0, mu=mu, mux=mux, lambd=lambd, rho=rho0,
-        reg=torch.full((S,), cfg.reg_min, dtype=dt, device=dev),
-        hx=hx, hu=hu, warm=warm,
-        iter=torch.zeros((S,), dtype=torch.int32, device=dev),
-        converged=torch.zeros((S,), dtype=torch.bool, device=dev),
-        failed=torch.zeros((S,), dtype=torch.bool, device=dev),
-        J=J0, delta_J=z, kmax=z, alpha=z, convio=z, metrics=m)
+    with span("altro.initial_state"):
+        S = X0.shape[0]
+        dt, dev = U0.dtype, U0.device
+        X = initial_rollout(sys, params, X0[:, 0].to(dt), U0)
+        hx, hu, warm = eval_constraints(sys, params, X, U0)
+        if duals is None:
+            mu = torch.zeros((S, sys.N - 1, sys.ncu), dtype=dt, device=dev)
+            mux = torch.zeros((S, sys.N, sys.ncx), dtype=dt, device=dev)
+            lambd = torch.zeros((S, sys.nx), dtype=dt, device=dev)
+        else:
+            mu, mux, lambd = (torch.as_tensor(d, dtype=dt, device=dev)
+                              for d in duals)
+            want = ((S, sys.N - 1, sys.ncu), (S, sys.N, sys.ncx), (S, sys.nx))
+            got = (tuple(mu.shape), tuple(mux.shape), tuple(lambd.shape))
+            if got != want:
+                raise ValueError(f"duals (mu, mux, lambd) have shapes {got}, "
+                                 f"expected {want}")
+        if rho is None:
+            rho0 = torch.full((S,), cfg.rho0, dtype=dt, device=dev)
+        else:
+            rho0 = torch.as_tensor(rho, dtype=dt, device=dev).expand(S).clone()
+        J0 = total_cost(sys, params, X, U0, hx, hu, mu, mux, lambd, rho0)
+        z = torch.zeros((S,), dtype=dt, device=dev)
+        m = Metrics(*(torch.zeros((S, cfg.metrics_len), dtype=dt, device=dev)
+                      for _ in range(7)))
+        return AltroState(
+            X=X, U=U0, mu=mu, mux=mux, lambd=lambd, rho=rho0,
+            reg=torch.full((S,), cfg.reg_min, dtype=dt, device=dev),
+            hx=hx, hu=hu, warm=warm,
+            iter=torch.zeros((S,), dtype=torch.int32, device=dev),
+            converged=torch.zeros((S,), dtype=torch.bool, device=dev),
+            failed=torch.zeros((S,), dtype=torch.bool, device=dev),
+            J=J0, delta_J=z, kmax=z, alpha=z, convio=z, metrics=m)
 
 
 def altro_iteration(sys, params, cfg, st: AltroState,
@@ -461,42 +475,43 @@ def altro_iteration(sys, params, cfg, st: AltroState,
         sys, params, cfg, st.X, st.U, K, k, st.mu, st.mux, st.lambd, st.rho,
         st.hx, st.hu, st.warm, active=active)
 
-    # regularisation update (ALTRO.py:51-74); at-cap failure sets a flag
-    failed = st.failed | ((alpha == 0.0) & (st.reg >= cfg.reg_max))
-    reg = torch.where(alpha == 0.0, torch.clamp(st.reg * 10.0, max=cfg.reg_max),
-                      torch.where(alpha == 1.0,
-                                  torch.clamp(st.reg / 10.0, min=cfg.reg_min),
-                                  st.reg))
+    with span("altro.duals"):
+        # regularisation update (ALTRO.py:51-74); at-cap failure sets a flag
+        failed = st.failed | ((alpha == 0.0) & (st.reg >= cfg.reg_max))
+        reg = torch.where(
+            alpha == 0.0, torch.clamp(st.reg * 10.0, max=cfg.reg_max),
+            torch.where(alpha == 1.0,
+                        torch.clamp(st.reg / 10.0, min=cfg.reg_min), st.reg))
 
-    # dual + penalty update, gated on (alpha > 0) & (kmax < atol)
-    # (ALTRO.py:444-481); the stall relaxation applies only below f64
-    dual_on_stall = cfg.dual_on_stall and dt != torch.float64
-    do_dual = (kmax < cfg.atol) & ((alpha > 0.0) | dual_on_stall)
-    r3 = scenario_view(st.rho, 3)
-    mask_u = eval_mask(st.mu, hu)
-    mu_new = torch.clamp(st.mu + r3 * mask_u * hu, min=0.0)
-    convio_u = torch.amax(torch.abs(hu + torch.abs(hu)), dim=(-2, -1))
-    mask_x = eval_mask(st.mux, hx)
-    mux_new = torch.clamp(st.mux + r3 * mask_x * hx, min=0.0)
-    convio_x = torch.amax(torch.abs(hx + torch.abs(hx)), dim=(-2, -1))
-    dxN = X[:, -1] - params["Xref"][:, -1]
-    lambd_new = st.lambd + st.rho[:, None] * dxN
-    convio = torch.maximum(torch.maximum(convio_u, convio_x),
-                           torch.amax(torch.abs(dxN), dim=-1))
-    converged = do_dual & (convio < cfg.convio_tol)
-    rho = torch.where(do_dual & ~converged, st.rho * cfg.phi, st.rho)
-    mu = _where(do_dual, mu_new, st.mu)
-    mux = _where(do_dual, mux_new, st.mux)
-    lambd = _where(do_dual, lambd_new, st.lambd)
-    convio_out = torch.where(do_dual, convio, st.convio)
+        # dual + penalty update, gated on (alpha > 0) & (kmax < atol)
+        # (ALTRO.py:444-481); the stall relaxation applies only below f64
+        dual_on_stall = cfg.dual_on_stall and dt != torch.float64
+        do_dual = (kmax < cfg.atol) & ((alpha > 0.0) | dual_on_stall)
+        r3 = scenario_view(st.rho, 3)
+        mask_u = eval_mask(st.mu, hu)
+        mu_new = torch.clamp(st.mu + r3 * mask_u * hu, min=0.0)
+        convio_u = torch.amax(torch.abs(hu + torch.abs(hu)), dim=(-2, -1))
+        mask_x = eval_mask(st.mux, hx)
+        mux_new = torch.clamp(st.mux + r3 * mask_x * hx, min=0.0)
+        convio_x = torch.amax(torch.abs(hx + torch.abs(hx)), dim=(-2, -1))
+        dxN = X[:, -1] - params["Xref"][:, -1]
+        lambd_new = st.lambd + st.rho[:, None] * dxN
+        convio = torch.maximum(torch.maximum(convio_u, convio_x),
+                               torch.amax(torch.abs(dxN), dim=-1))
+        converged = do_dual & (convio < cfg.convio_tol)
+        rho = torch.where(do_dual & ~converged, st.rho * cfg.phi, st.rho)
+        mu = _where(do_dual, mu_new, st.mu)
+        mux = _where(do_dual, mux_new, st.mux)
+        lambd = _where(do_dual, lambd_new, st.lambd)
+        convio_out = torch.where(do_dual, convio, st.convio)
 
-    slot = torch.clamp(st.iter, max=cfg.metrics_len - 1).long()[:, None]
-    put = lambda buf, v: buf.scatter(1, slot, v[:, None].to(buf.dtype))
-    m = st.metrics
-    m = Metrics(J=put(m.J, J), delta_J=put(m.delta_J, delta_J),
-                kmax=put(m.kmax, kmax), alpha=put(m.alpha, alpha),
-                reg=put(m.reg, reg), rho=put(m.rho, rho),
-                convio=put(m.convio, convio_out))
+        slot = torch.clamp(st.iter, max=cfg.metrics_len - 1).long()[:, None]
+        put = lambda buf, v: buf.scatter(1, slot, v[:, None].to(buf.dtype))
+        m = st.metrics
+        m = Metrics(J=put(m.J, J), delta_J=put(m.delta_J, delta_J),
+                    kmax=put(m.kmax, kmax), alpha=put(m.alpha, alpha),
+                    reg=put(m.reg, reg), rho=put(m.rho, rho),
+                    convio=put(m.convio, convio_out))
     return AltroState(
         X=X, U=U, mu=mu, mux=mux, lambd=lambd, rho=rho, reg=reg,
         hx=hx, hu=hu, warm=warm, iter=st.iter + 1, converged=converged,
@@ -524,11 +539,12 @@ def iterate(sys, params, cfg: AltroConfig, st: AltroState,
     checkpoint (:mod:`dcol_tpu_torch.parallel.checkpoint`)."""
     itr = 0
     while True:
-        active = ~(st.converged | st.failed) & (st.iter < cfg.max_iters)
-        if not bool(active.any()):
-            return st
-        st = _where(active, altro_iteration(sys, params, cfg, st,
-                                            active=active), st)
+        with span("altro.iteration"):
+            active = ~(st.converged | st.failed) & (st.iter < cfg.max_iters)
+            if not bool(active.any()):
+                return st
+            st = _where(active, altro_iteration(sys, params, cfg, st,
+                                                active=active), st)
         if callback is not None:
             callback(itr, st)
         itr += 1

@@ -25,6 +25,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from dcol_tpu_torch.solver import altro
+from dcol_tpu_torch.utils.trace import span
 
 
 class MpcCarry(NamedTuple):
@@ -111,37 +112,38 @@ def mpc_run(sys, params, cfg: altro.AltroConfig, x0, U_init, n_steps: int,
 
     xs, us, outs = [carry.x], [], []
     for k in range(n_steps):
-        x = carry.x
-        p = dict(params)
-        if xref_path is not None:
-            p["Xref"] = xref_path[:, k0 + k:k0 + k + N]
-        X0 = x[:, None].expand(S, N, nx)
-        if carry_duals:
-            st = altro.solve(sys, p, cfg, X0, carry.U,
-                             duals=(carry.mu, carry.mux, carry.lambd),
-                             rho=carry.rho)
-        else:
-            st = altro.solve(sys, p, cfg, X0, carry.U)
-        u0 = st.U[:, 0]
-        x_next = sys.discrete_dynamics(p, x, u0)
-        if noise is not None:
-            x_next = x_next + noise[:, k]
-        if carry_duals:
-            carry = MpcCarry(x_next, _shift(st.U), _shift(st.mu),
-                             _shift(st.mux), st.lambd, st.rho)
-        else:
-            carry = MpcCarry(x_next, _shift(st.U), *zero_duals())
-        # quality: true violation of the emitted plan (the solver's convio
-        # formula) and the collision margin at the measured state
-        amax = lambda a: torch.amax(a.reshape(S, -1), dim=1)
-        convio = torch.maximum(
-            torch.maximum(amax(torch.abs(st.hx + torch.abs(st.hx))),
-                          amax(torch.abs(st.hu + torch.abs(st.hu)))),
-            amax(torch.abs(st.X[:, -1] - p["Xref"][:, -1])))
-        xs.append(x_next)
-        us.append(u0)
-        outs.append((st.iter, st.converged, st.J, convio,
-                     torch.amax(st.hx[:, 0], dim=-1), st.kmax))
+        with span("mpc.tick"):
+            x = carry.x
+            p = dict(params)
+            if xref_path is not None:
+                p["Xref"] = xref_path[:, k0 + k:k0 + k + N]
+            X0 = x[:, None].expand(S, N, nx)
+            if carry_duals:
+                st = altro.solve(sys, p, cfg, X0, carry.U,
+                                 duals=(carry.mu, carry.mux, carry.lambd),
+                                 rho=carry.rho)
+            else:
+                st = altro.solve(sys, p, cfg, X0, carry.U)
+            u0 = st.U[:, 0]
+            x_next = sys.discrete_dynamics(p, x, u0)
+            if noise is not None:
+                x_next = x_next + noise[:, k]
+            if carry_duals:
+                carry = MpcCarry(x_next, _shift(st.U), _shift(st.mu),
+                                 _shift(st.mux), st.lambd, st.rho)
+            else:
+                carry = MpcCarry(x_next, _shift(st.U), *zero_duals())
+            # quality: true violation of the emitted plan (the solver's convio
+            # formula) and the collision margin at the measured state
+            amax = lambda a: torch.amax(a.reshape(S, -1), dim=1)
+            convio = torch.maximum(
+                torch.maximum(amax(torch.abs(st.hx + torch.abs(st.hx))),
+                              amax(torch.abs(st.hu + torch.abs(st.hu)))),
+                amax(torch.abs(st.X[:, -1] - p["Xref"][:, -1])))
+            xs.append(x_next)
+            us.append(u0)
+            outs.append((st.iter, st.converged, st.J, convio,
+                         torch.amax(st.hx[:, 0], dim=-1), st.kmax))
     stack = lambda i: torch.stack([o[i] for o in outs], dim=1)
     return MpcResult(torch.stack(xs, dim=1), torch.stack(us, dim=1),
                      *(stack(i) for i in range(6)), final=carry)

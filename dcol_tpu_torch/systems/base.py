@@ -30,6 +30,7 @@ from dcol_tpu_torch.geometry.primitives import Shape
 from dcol_tpu_torch.ops.cones import ConeLayout
 from dcol_tpu_torch.ops.pdip import solve_socp
 from dcol_tpu_torch.ops.pdip_cuda import solve_socp_cuda
+from dcol_tpu_torch.utils import trace
 
 
 _JVP_LOCK = threading.Lock()
@@ -113,25 +114,32 @@ class CollisionScene:
         obs_r, obs_p: (..., n_obs, 3) with batch dims broadcastable against
         r's.  Returns one (c (..., n_g, nv), G (..., n_g, nr, nv),
         h (..., n_g, nr)) per group."""
-        out = []
-        for lay, idx in self.groups:
-            pairs = [assembly.assemble_pair(
-                self.robot, self.obstacles[i], lay, r, p,
-                obs_r[..., i, :], obs_p[..., i, :]) for i in idx]
-            out.append(tuple(torch.stack([q[k] for q in pairs], dim=d)
-                             for k, d in enumerate((-2, -3, -2))))
-        return out
+        with trace.span("scene.assemble"):
+            out = []
+            for lay, idx in self.groups:
+                pairs = [assembly.assemble_pair(
+                    self.robot, self.obstacles[i], lay, r, p,
+                    obs_r[..., i, :], obs_p[..., i, :]) for i in idx]
+                out.append(tuple(torch.stack([q[k] for q in pairs], dim=d)
+                                 for k, d in enumerate((-2, -3, -2))))
+            return out
 
     # -- solver dispatch --------------------------------------------------
     def _solve(self, c, G, h, lay: ConeLayout, warm=None, skip=None,
                margin=None):
         """Solve a flat batch of pair problems: the kernel for CUDA
-        tensors, the plain version for CPU tensors."""
-        solver = solve_socp_cuda if G.is_cuda else solve_socp
-        wm = self.opts.warm_margin if margin is None else margin
-        return solver(c, G, h, lay, tol=self.opts.tol,
-                      max_iters=self.opts.max_iters, jitter=self.opts.jitter,
-                      warm=warm, skip=skip, warm_margin=wm)
+        tensors, the plain version for CPU tensors.  Under a profiler the
+        batch's work is noted (``utils.trace.RECORDER``)."""
+        with trace.span("scene.solve"):
+            solver = solve_socp_cuda if G.is_cuda else solve_socp
+            wm = self.opts.warm_margin if margin is None else margin
+            sol = solver(c, G, h, lay, tol=self.opts.tol,
+                         max_iters=self.opts.max_iters,
+                         jitter=self.opts.jitter, warm=warm, skip=skip,
+                         warm_margin=wm)
+            if c.shape[0] > 0 and trace.recording():
+                trace.RECORDER.note_pdip(c, lay, warm, skip, sol)
+            return sol
 
     def _solve_groups_traj(self, rs, ps, obs_r, obs_p, warm=None, skip=None,
                            margin=None):
@@ -210,25 +218,26 @@ class CollisionScene:
         over the 6 pose dims.  Each knot's Lagrangian depends on that knot's
         pose only, so the 6 tangent directions ride one leading batch dim of
         size 6 through a single ``jvp``."""
-        dt, dev = rs.dtype, rs.device
-        basis = torch.eye(6, dtype=dt, device=dev)[:, None, None, :]
-        shape6 = (6,) + rs.shape
-        tr = basis[..., :3].expand(shape6).contiguous()
-        tp = basis[..., 3:].expand(shape6).contiguous()
+        with trace.span("scene.envelope"):
+            dt, dev = rs.dtype, rs.device
+            basis = torch.eye(6, dtype=dt, device=dev)[:, None, None, :]
+            shape6 = (6,) + rs.shape
+            tr = basis[..., :3].expand(shape6).contiguous()
+            tp = basis[..., 3:].expand(shape6).contiguous()
 
-        def lag(r_, p_):
-            grouped = self.assemble_groups(r_, p_, obs_r[:, None],
-                                           obs_p[:, None])
-            lags = []
-            for gi, (_, G_, h_) in enumerate(grouped):
-                Gx = lagrangian_gx(G_, xs[gi])
-                lags.append(torch.sum(zs[gi] * (Gx - h_), dim=-1))
-            return self._gather_cols(lags)
+            def lag(r_, p_):
+                grouped = self.assemble_groups(r_, p_, obs_r[:, None],
+                                               obs_p[:, None])
+                lags = []
+                for gi, (_, G_, h_) in enumerate(grouped):
+                    Gx = lagrangian_gx(G_, xs[gi])
+                    lags.append(torch.sum(zs[gi] * (Gx - h_), dim=-1))
+                return self._gather_cols(lags)
 
-        _, d = jvp(lag, (rs.expand(shape6).contiguous(),
-                         ps.expand(shape6).contiguous()), (tr, tp))
-        d = d.permute(1, 2, 3, 0)  # (S, T, n_obs, 6)
-        return d[..., :3], d[..., 3:]
+            _, d = jvp(lag, (rs.expand(shape6).contiguous(),
+                             ps.expand(shape6).contiguous()), (tr, tp))
+            d = d.permute(1, 2, 3, 0)  # (S, T, n_obs, 6)
+            return d[..., :3], d[..., 3:]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -24,7 +24,7 @@ The components overlap (the full iteration holds the others), so they do
 not sum to ``full_iteration``.  Each one's peak of allocated device memory
 (``torch.cuda.max_memory_allocated`` over one call, the state it reads
 included) is given beside its time.  Then one ``full_iteration`` runs under
-``torch.profiler`` (:func:`dcol_tpu_torch.utils.metrics.trace`): its device
+``torch.profiler`` (:func:`dcol_tpu_torch.utils.trace.trace`): its device
 busy share is the summed time of the card's kernels, copies and sets over
 the window's wall, and the 10 device operations with the most time are
 listed by name.  The profiler slows the host far more than the card, so
@@ -46,11 +46,11 @@ import torch
 
 from dcol_tpu_torch.ops import nvcc_build
 from dcol_tpu_torch.tools import roofline
+from dcol_tpu_torch.utils import trace
 
 ADVANCE_ITERS = 10
 REPS = 5
 TOP_OPS = 10
-DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 LOG_DIR = os.path.join(nvcc_build.BUILD_DIR, "profile_breakdown")
 
 
@@ -120,19 +120,17 @@ def peak_bytes(fn) -> int:
 def device_profile(fn, log_dir: str = LOG_DIR) -> dict:
     """One call of ``fn`` under the profiler: wall, summed device time,
     busy share and the top device operations by time."""
-    from dcol_tpu_torch.utils import metrics
-
-    with metrics.trace(log_dir):
+    with trace.trace(log_dir):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    with open(os.path.join(log_dir, metrics.TRACE_FILE)) as f:
+    with open(os.path.join(log_dir, trace.TRACE_FILE)) as f:
         events = json.load(f)["traceEvents"]
     by_name = collections.defaultdict(lambda: [0.0, 0])
     for e in events:
-        if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS:
+        if e.get("ph") == "X" and e.get("cat") in trace.DEVICE_CATS:
             by_name[e["name"]][0] += e["dur"] / 1e3
             by_name[e["name"]][1] += 1
     device_ms = sum(ms for ms, _ in by_name.values())

@@ -1,36 +1,17 @@
-"""Observability helpers: profiler traces, timing that waits for the card,
-throughput, and host-side formatting of the solver's metrics.  Port of
-``dcol_tpu/utils/metrics.py``, with ``torch.profiler`` where the JAX
-package has ``jax.profiler``."""
+"""Observability helpers: timing that waits for the card and host-side
+formatting of the solver's metrics.  Port of ``dcol_tpu/utils/metrics.py``;
+its profiler trace (``jax.profiler`` there) is
+:func:`dcol_tpu_torch.utils.trace.trace`."""
 
 from __future__ import annotations
 
-import contextlib
 import json
-import os
 import time
-from typing import Iterator
 
 import numpy as np
 import torch
 
 from dcol_tpu_torch.solver.altro import TABLE_HEADER, table_row
-
-TRACE_FILE = "trace.json"
-
-
-@contextlib.contextmanager
-def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
-    """Profile the block on the host and, where there is one, the card
-    (``torch.profiler``); the Chrome trace goes to
-    ``<log_dir>/trace.json`` (open it in Perfetto or chrome://tracing)."""
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with torch.profiler.profile(activities=acts) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
 
 
 def _cuda_devices(tree) -> set:
@@ -64,19 +45,6 @@ class Timer:
         if torch.cuda.is_available():
             torch.cuda.synchronize()
         self.elapsed = time.perf_counter() - self.t0
-
-
-def throughput(fn, *args, reps: int = 5, warmup: int = 1) -> dict:
-    """{wall_s, per_call_s} of ``fn(*args)`` over ``reps`` calls after
-    ``warmup`` calls (the first calls build the kernels)."""
-    for _ in range(warmup):
-        block(fn(*args))
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        out = fn(*args)
-    block(out)
-    wall = time.perf_counter() - t0
-    return {"wall_s": wall, "per_call_s": wall / reps}
 
 
 def iteration_table(state, member: int = 0, limit: int | None = None) -> str:

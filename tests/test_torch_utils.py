@@ -21,7 +21,7 @@ from dcol_tpu_torch.geometry import primitives as prim
 from dcol_tpu_torch.solver import altro
 from dcol_tpu_torch.systems import piano_mover, quadrotor
 from dcol_tpu_torch.tools import profile_breakdown
-from dcol_tpu_torch.utils import metrics, plots, viz
+from dcol_tpu_torch.utils import metrics, plots, trace, viz
 
 torch.set_num_threads(1)
 
@@ -159,12 +159,10 @@ def test_metrics_timer_block_throughput_trace(tmp_path):
     assert metrics.block({"a": (x, [x])}) is not None
     with metrics.Timer() as t:
         y = x + 1
-    assert t.elapsed >= 0.0
-    r = metrics.throughput(lambda a: a * 2, y, reps=3)
-    assert r["wall_s"] >= 0.0 and r["per_call_s"] == r["wall_s"] / 3
-    with metrics.trace(str(tmp_path)):
+    assert t.elapsed >= 0.0 and torch.equal(y, x + 1)
+    with trace.trace(str(tmp_path)):
         (x * 3).sum()
-    assert os.path.exists(os.path.join(tmp_path, metrics.TRACE_FILE))
+    assert os.path.exists(os.path.join(tmp_path, trace.TRACE_FILE))
 
 
 def test_cli_verbose_no_viz(tmp_path, monkeypatch, capsys):
