@@ -7,8 +7,8 @@ Phases, in order; any failure ends the run with a nonzero exit:
   1. device: require CUDA; print the card's name and power limit;
   2. build: compile every kernel specialisation the run uses, all at once
      (nvcc, sm_90a): the PDIP kernel for each layout and dtype (with the
-     wrapper's arithmetic type and team size), and the FMA probe in float32
-     and float64; print the build seconds and the ptxas registers and spill
+     wrapper's arithmetic type and team size), the FMA probe and the
+     rollout kernel in float32 and float64; print the build seconds and the ptxas registers and spill
      bytes, and fail if a specialisation with float32 operands spills (the
      float32 ones iterated in float64 among them);
   3. the PDIP kernel vs its plain PyTorch version on the card, on the
@@ -113,6 +113,17 @@ Phases, in order; any failure ends the run with a nonzero exit:
      scenario replicated as the main path's batch of 128 and as the
      piano's batch of 64 (tools/replicas.py), every state field equal
      across members;
+ 16. rollout: the quadrotor's rollout kernel against its loop
+     (altro.rollout_loop) on the card, in float32 at S = 1024 with C = 1
+     and 4 candidates at N = 100 and 40, and in float64 at S = 64: each
+     state against the float64 RK4 step from its own previous state and
+     control, and each control against the feedback law, within
+     portbench's dyn_gap limit (2e-5 over 1 + |x|); the open loop
+     (initial_rollout) the same way; scenario 0 replicated in every row,
+     every row bitwise equal to scenario 0's own lanes; the kernel's time a
+     launch (CUDA events) beside its byte bound and the loop's time; the
+     launches counted against those made (phase 2 fails on float32
+     spills; phases 4 and 8 require the quadrotor's paths to launch it);
   9. a JSON line of kernel results, then the last line
      {"ok": true, "device": {...}}.
 
@@ -140,6 +151,8 @@ BATCH = 128
 DEVICE = "cuda:0"
 PDIP_TPU_KERNEL = "dcol_tpu/ops/pdip_pallas.py:464"
 FMA_TPU_KERNEL = "tools/roofline.py:231"
+# the rollout has no TPU kernel: the JAX package's is a lax.scan
+ROLLOUT_TPU_KERNEL = None
 F32, F64 = torch.float32, torch.float64
 RESUME_CAP = 20   # phase 10: AL iterations before the checkpoint
 # proximity on the card vs on the CPU, f64 at tol 1e-10: x and z
@@ -165,6 +178,15 @@ REPLICA_ITERATIONS = 3
 JAX_COLD_ITERS = 1_270_400
 COLD_ITERS_RTOL = {"plain": 1e-3, "kernel": 5e-3}
 NAN_MEMBER = 9  # shares its warp with 3 healthy teams of 8
+# phase 16: the rollout kernel's shapes (dtype, S, C, N): the cells' batch
+# with the probe's one candidate and a chunk's four, at the plan's horizon
+# and the MPC's; float64 at a small S.  Each state is held to the float64
+# RK4 step from its own previous state and control within portbench's
+# dyn_gap limit (limits/quad_*.json), each control to the feedback law
+ROLLOUT_SHAPES = ((F32, 1024, 1, 100), (F32, 1024, 4, 100),
+                  (F32, 1024, 1, 40), (F32, 1024, 4, 40), (F64, 64, 4, 100))
+ROLLOUT_DYN_GAP = 2e-5
+ROLLOUT_REPS = 20
 
 
 def log(*a):
@@ -231,19 +253,21 @@ class Run:
         """Run one path with every kernel's launch count set to 0 just
         before it and read just after, and the peak of allocated device
         memory over it; fail unless each kernel in ``kernels`` launched."""
-        from dcol_tpu_torch.ops import fma_peak, pdip_cuda
+        from dcol_tpu_torch.ops import fma_peak, pdip_cuda, rollout_cuda
 
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         pdip_cuda.launches = 0
         pdip_cuda.tally.clear()
         fma_peak.launches = 0
+        rollout_cuda.launches = 0
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
-        counts = {"pdip": pdip_cuda.launches, "fma_peak": fma_peak.launches}
+        counts = {"pdip": pdip_cuda.launches, "fma_peak": fma_peak.launches,
+                  "rollout": rollout_cuda.launches}
         by_shape = {" ".join(map(str, k)): n
                     for k, n in sorted(pdip_cuda.tally.items())}
         self.record["paths"][name] = dict(counts, wall_s=wall,
@@ -272,7 +296,7 @@ class Run:
 # -- 2. build ----------------------------------------------------------------
 
 def phase_build(run):
-    from dcol_tpu_torch.ops import fma_peak, nvcc_build, pdip_cuda
+    from dcol_tpu_torch.ops import fma_peak, nvcc_build, pdip_cuda, rollout_cuda
     from dcol_tpu_torch.ops.cones import ConeLayout
     from dcol_tpu_torch.ops.proximity import pair_layouts
     from dcol_tpu_torch.systems import (
@@ -297,6 +321,7 @@ def phase_build(run):
     specs = list(dict.fromkeys(specs))
     jobs = [lambda a=a: pdip_cuda.build(*a) for a in specs]
     jobs += [lambda d=d: fma_peak.build(d) for d in (F32, F64)]
+    jobs += [lambda d=d: rollout_cuda.build(d) for d in (F32, F64)]
     t0 = time.perf_counter()
     builds = nvcc_build.run_parallel(jobs)
     build_wall = time.perf_counter() - t0
@@ -311,7 +336,7 @@ def phase_build(run):
                     f"n_ort={n_ort} s1={s1} s2={s2} team={team}")
         else:
             dt = b.key[1]
-            name = f"fma_peak {str(dt)[6:]}"
+            name = f"{b.key[0]} {str(dt)[6:]}"
         secs = "cached" if b.seconds is None else f"{b.seconds:.2f} s"
         regs = [int(ln.split("Used ")[1].split()[0]) for ln in b.ptxas
                 if "Used " in ln]
@@ -557,7 +582,8 @@ def phase_quadrotor(run):
         "quadrotor", F32, dev, seed=0, n=BATCH)
     st, wall = run.path(
         "quadrotor solve_batch",
-        lambda: solve_batch(sys_, params_b, cfg, X0_b, U0_b), ["pdip"])
+        lambda: solve_batch(sys_, params_b, cfg, X0_b, U0_b),
+        ["pdip", "rollout"])
     check(st.X.shape == (BATCH, sys_.N, sys_.nx), f"X shape {st.X.shape}")
     # the main path's guards (tools/hard_lanes.py::main_path_failures):
     # 128/128 converged in 44-55 mean iterations, finite X and U, and an
@@ -878,7 +904,8 @@ def phase_mpc(run):
     S, N, tick_iters = x0s.shape[0], sys_.N, cfg.max_iters
     r, wall = run.path(
         "mpc quadrotor S=128",
-        lambda: mpc.mpc_run(sys_, pb, cfg, x0s, Ub, n_steps), ["pdip"])
+        lambda: mpc.mpc_run(sys_, pb, cfg, x0s, Ub, n_steps),
+        ["pdip", "rollout"])
     check(bool(torch.isfinite(r.X_applied).all()
                & torch.isfinite(r.U_applied).all()),
           "quadrotor MPC: non-finite states or controls")
@@ -1416,6 +1443,122 @@ def phase_hard_lanes(run):
                              "failed": bad.failed.tolist()}
 
 
+# -- 16. rollout -------------------------------------------------------------
+
+def rollout_inputs(S, C, N, dtype, dev, seed=0):
+    """(system, params, X, U, K, k, alpha) of the solver's first line
+    search on S quadrotor scenarios at N knots: the initial state of
+    perturbed initial states under the pinned controls, the gains of its
+    backward pass, and the first C candidates 1, 1/2, ..."""
+    from dcol_tpu_torch.parallel.batch import perturb_scenarios
+    from dcol_tpu_torch.solver import altro
+    from dcol_tpu_torch.systems import quadrotor
+
+    sys_, params, X0, U0, cfg = quadrotor.make_problem(dtype, dev, N=N)
+    pb, xb, ub = perturb_scenarios(params, X0, U0, n=S, seed=seed,
+                                   x0_sigma=0.02)
+    st = altro.make_initial_state(sys_, pb, cfg, xb, ub)
+    K, k, _, _ = altro.backward_pass(sys_, pb, st.X, st.U, st.mu, st.mux,
+                                     st.lambd, st.rho, st.reg, warm=st.warm)
+    alpha = (0.5 ** torch.arange(C, device=dev)).to(dtype).expand(S, C)
+    return sys_, pb, st.X, st.U, K, k, alpha.contiguous()
+
+
+def rollout_gaps(sys_, pb, X, U, K, k, alpha, Xn, Un):
+    """(state gap, control gap) of a closed-loop rollout: each state
+    against the float64 RK4 step from its own previous state and control,
+    and each control against the feedback law from its own state, in
+    float64, max |a - b| / (1 + |b|) per row as portbench's dyn_gap."""
+    d = lambda t: t.double()
+    rel = lambda a, b: float(((d(a) - b).abs().amax(-1)
+                              / (1.0 + b.abs().amax(-1))).max())
+    step = sys_.discrete_dynamics(pb, d(Xn[:, :, :-1]), d(Un))
+    dx = d(Xn[:, :, :-1]) - d(X[:, None, :-1])
+    law = (d(U[:, None]) - (d(K[:, None]) @ dx[..., None])[..., 0]
+           - d(alpha)[:, :, None, None] * d(k[:, None]))
+    first = rel(Xn[:, :, 0], d(X[:, None, 0]).expand(Xn[:, :, 0].shape))
+    return max(rel(Xn[:, :, 1:], step), first), rel(Un, law)
+
+
+def rollout_bytes(S, C, N, itemsize):
+    """Bytes a closed-loop rollout reads once and writes once."""
+    reads = S * N * 12 + S * (N - 1) * (4 + 48 + 4) + S * C
+    writes = S * C * (N * 12 + (N - 1) * 4)
+    return (reads + writes) * itemsize
+
+
+def phase_rollout(run):
+    from dcol_tpu_torch.ops import rollout_cuda
+    from dcol_tpu_torch.solver import altro
+    from dcol_tpu_torch.tools import roofline
+
+    dev = run.dev
+    calls = got = 0
+    rows = run.record["rollout"] = []
+    for dtype, S, C, N in ROLLOUT_SHAPES:
+        key = f"{str(dtype)[6:]} S={S} C={C} N={N}"
+        sys_, pb, X, U, K, k, alpha = rollout_inputs(S, C, N, dtype, dev)
+        n0 = rollout_cuda.launches
+        Xk, Uk = rollout_cuda.rollout_cuda(sys_, X, U, K, k, alpha)
+        Xl, Ul = altro.rollout_loop(sys_, pb, X, U, K, k, alpha)
+        torch.cuda.synchronize()
+        calls += 1
+        check(bool(torch.isfinite(Xk).all() & torch.isfinite(Uk).all()),
+              f"rollout {key}: non-finite states or controls")
+        gap_x, gap_u = rollout_gaps(sys_, pb, X, U, K, k, alpha, Xk, Uk)
+        gap_loop, _ = rollout_gaps(sys_, pb, X, U, K, k, alpha, Xl, Ul)
+        vs_loop = float(((Xk.double() - Xl.double()).abs().amax(-1)
+                         / (1.0 + Xl.double().abs().amax(-1))).max())
+        # replicated scenarios: scenario 0 in every row, each row bitwise
+        # equal to the others and to scenario 0's own lanes above
+        rep = [t[:1].expand(t.shape).contiguous()
+               for t in (X, U, K, k, alpha)]
+        Xr, Ur = rollout_cuda.rollout_cuda(sys_, *rep)
+        calls += 1
+        same = bool((Xr == Xk[:1]).all() & (Ur == Uk[:1]).all())
+        # the open loop from the same initial states under U
+        Xo = rollout_cuda.initial_rollout_cuda(sys_, X[:, 0], U)
+        calls += 1
+        gap_o, _ = rollout_gaps(
+            sys_, pb, X, U, K * 0, k * 0, alpha[:, :1], Xo[:, None],
+            U[:, None])
+        ms, _ = roofline.time_launch(
+            lambda: rollout_cuda.rollout_cuda(sys_, X, U, K, k, alpha),
+            reps=ROLLOUT_REPS)
+        calls += 1 + ROLLOUT_REPS
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        altro.rollout_loop(sys_, pb, X, U, K, k, alpha)
+        torch.cuda.synchronize()
+        loop_ms = 1e3 * (time.perf_counter() - t0)
+        nbytes = rollout_bytes(S, C, N, X.element_size())
+        bound_ms = 1e3 * nbytes / roofline.PEAK_BYTES
+        row = dict(dtype=str(dtype)[6:], S=S, C=C, N=N, dyn_gap=gap_x,
+                   control_gap=gap_u, loop_dyn_gap=gap_loop,
+                   open_loop_dyn_gap=gap_o, vs_loop=vs_loop,
+                   replicas_equal=same, ms=ms, loop_ms=loop_ms,
+                   bytes=nbytes, bound_ms=bound_ms,
+                   of_bound=bound_ms / ms)
+        rows.append(row)
+        log(f"[rollout] {key}: dyn gap kernel {gap_x:.3e} (loop "
+            f"{gap_loop:.3e}, open loop {gap_o:.3e}), control gap "
+            f"{gap_u:.3e}, kernel vs loop {vs_loop:.3e}; replicas equal "
+            f"{same}; kernel {ms:.4f} ms a launch, loop {loop_ms:.1f} ms; "
+            f"bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB), "
+            f"{100 * bound_ms / ms:.2f}% of it")
+        for name, gap in (("state", gap_x), ("control", gap_u),
+                          ("open-loop state", gap_o)):
+            check(gap <= ROLLOUT_DYN_GAP,
+                  f"rollout {key}: {name} gap {gap:.3e} over "
+                  f"{ROLLOUT_DYN_GAP}")
+        check(same, f"rollout {key}: replicated scenarios part")
+        got += rollout_cuda.launches - n0
+        del X, U, K, k, alpha, Xk, Uk, Xl, Ul, Xr, Ur, Xo, rep
+    log(f"[rollout] launches counted {got}, made {calls}")
+    check(got == calls, f"rollout launches counted {got}, made {calls}")
+
+
+
 def main():
     # -- 1. device -----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -1439,7 +1582,7 @@ def main():
     for phase in (phase_build, phase_pdip, phase_quadrotor, phase_roofline,
                   phase_proximity, phase_cone, phase_mpc, phase_distributed,
                   phase_blocked_mesh, phase_profile, phase_cli,
-                  phase_latency, phase_hard_lanes):
+                  phase_latency, phase_hard_lanes, phase_rollout):
         t = time.perf_counter()
         phase(run)
         log(f"[phase] {phase.__name__[6:]}: {time.perf_counter() - t:.1f} s")
@@ -1461,7 +1604,18 @@ def main():
          "replaces": FMA_TPU_KERNEL, "launches": run.launches("fma_peak"),
          "max_abs_err": fma["max_abs_err"], "ms": fma["ms"],
          "plain_ms": fma["plain_ms"], "bound_ms": fma["bound_ms"],
-         "bound_by": fma["bound_by"], "library_ms": None}]}
+         "bound_by": fma["bound_by"], "library_ms": None},
+        {"name": "rollout", "route": "cuda",
+         "source": "dcol_tpu_torch/csrc/rollout.cu",
+         "replaces": ROLLOUT_TPU_KERNEL, "launches": run.launches("rollout"),
+         "max_abs_err": None,
+         "ms": {f"{r['dtype']} S={r['S']} C={r['C']} N={r['N']}": r["ms"]
+                for r in run.record["rollout"]},
+         "plain_ms": {f"{r['dtype']} S={r['S']} C={r['C']} N={r['N']}":
+                      r["loop_ms"] for r in run.record["rollout"]},
+         "bound_ms": {f"{r['dtype']} S={r['S']} C={r['C']} N={r['N']}":
+                      r["bound_ms"] for r in run.record["rollout"]},
+         "bound_by": "bytes", "library_ms": None}]}
     run.record["kernels"] = kernels["kernels"]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:

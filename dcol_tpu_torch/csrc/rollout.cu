@@ -1,0 +1,282 @@
+// The quadrotor's rollout: every RK4 step of a trajectory in one launch.
+//
+//     u_t     = U_t - K_t (x_t - X_t) - alpha k_t        (closed loop)
+//     x_{t+1} = RK4(x_t, u_t)                             t = 0 .. N-2
+//
+// Replaces no TPU kernel: the JAX package runs this rollout as a lax.scan
+// (dcol_tpu/solver/altro.py, rollout and initial_rollout), which XLA
+// compiles into one loop on the device.  The port's plain version is a
+// Python loop over knots (dcol_tpu_torch/solver/altro.py::rollout_loop),
+// a few hundred ATen launches a knot; this kernel is the scan.  It computes
+// Quadrotor.dynamics (dcol_tpu_torch/systems/quadrotor.py): the rotor-force
+// clamp, the thrust direction (the third column of the MRP direction cosine
+// matrix), the MRP kinematics and omega' = (tau - omega x J omega) / J, in
+// the operand type (DCOL_T), with IEEE divisions.  The results are not
+// bitwise the loop's: products are contracted into FMAs and sums taken in
+// another order than ATen's separate kernels and cuBLAS's bmm.
+//
+// One lane (thread) runs one (scenario, candidate) through the whole
+// trajectory.  Operands, row-major, contiguous and 16-byte aligned:
+//   x0 (S, nx) with a stride of x0_stride elements between scenarios
+//   X (S, N, nx), U (S, N-1, nu), K (S, N-1, nu, nx), k (S, N-1, nu),
+//   alpha (S, C); results Xn (S, C, N, nx) and Un (S, C, N-1, nu).
+// The open loop (K null) reads only x0 and U, and writes no Un where it is
+// null.
+//
+// What bounds it on the card: latency.  A rollout of S = 1024, C = 4,
+// N = 100 moves ~54 MB (10-16 us at 3.35 TB/s) and ~0.2 GFLOP, but each lane
+// runs 99 dependent RK4 steps of ~4 x 70 dependent operations, divisions
+// among them.  What the design does about it:
+//   * the C candidates of a scenario are adjacent lanes, so one load of
+//     K_t, X_t, U_t and k_t serves them all;
+//   * every row a lane reads or writes (x, u, a row of K) is a whole
+//     number of 16-byte vectors, read and written as such: 17 loads and 4
+//     stores a knot in float32 instead of 68 and 16, since the lanes of a
+//     warp touch up to 32 scenarios' rows, and each scalar access to them
+//     costs the load/store unit a pass per row;
+//   * knot t+1's operands are loaded into the registers that knot t's have
+//     just left, before knot t integrates, so their latency hides behind
+//     the RK4 step;
+//   * blocks of one warp, so 1,024-4,096 lanes spread over 32-128 SMs;
+//   * nx and nu are compile-time constants: every per-lane vector is a
+//     register array with constant indices.
+
+#include <cuda_runtime.h>
+
+#if !defined(DCOL_T)
+#error "build with -DDCOL_T=float|double"
+#endif
+
+namespace {
+
+typedef DCOL_T Real;
+constexpr int kNX = 12;
+constexpr int kNU = 4;
+constexpr int kBlock = 32;
+
+struct Consts {
+  Real mass, jx, jy, jz, g, arm, kf, km, dt;
+};
+
+// 16-byte vectors of Real: float4 or double2
+__device__ __forceinline__ void unpack(float4 v, float* d) {
+  d[0] = v.x;
+  d[1] = v.y;
+  d[2] = v.z;
+  d[3] = v.w;
+}
+__device__ __forceinline__ void unpack(double2 v, double* d) {
+  d[0] = v.x;
+  d[1] = v.y;
+}
+__device__ __forceinline__ float4 pack(const float* d) {
+  return make_float4(d[0], d[1], d[2], d[3]);
+}
+__device__ __forceinline__ double2 pack(const double* d) {
+  return make_double2(d[0], d[1]);
+}
+template <typename T> struct VecOf;
+template <> struct VecOf<float> { typedef float4 type; };
+template <> struct VecOf<double> { typedef double2 type; };
+typedef VecOf<Real>::type Vec;
+constexpr int kVec = 16 / sizeof(Real);
+
+// dst[0 .. M) = src[0 .. M), src 16-byte aligned, M a multiple of kVec
+template <int M>
+__device__ __forceinline__ void load_row(Real* dst,
+                                         const Real* __restrict__ src) {
+  static_assert(M % kVec == 0, "rows are whole 16-byte vectors");
+  const Vec* v = reinterpret_cast<const Vec*>(src);
+#pragma unroll
+  for (int i = 0; i < M / kVec; ++i) unpack(__ldg(v + i), dst + i * kVec);
+}
+
+template <int M>
+__device__ __forceinline__ void store_row(Real* __restrict__ dst,
+                                          const Real* src) {
+  static_assert(M % kVec == 0, "rows are whole 16-byte vectors");
+  Vec* v = reinterpret_cast<Vec*>(dst);
+#pragma unroll
+  for (int i = 0; i < M / kVec; ++i) v[i] = pack(src + i * kVec);
+}
+
+// One knot's operands of a scenario.
+struct Knot {
+  Real X[kNX], U[kNU], K[kNU * kNX], k[kNU];
+};
+
+template <bool FB>
+__device__ __forceinline__ void load_knot(Knot& d, const Real* __restrict__ X,
+                                          const Real* __restrict__ U,
+                                          const Real* __restrict__ K,
+                                          const Real* __restrict__ k,
+                                          long long s, int t, int N) {
+  const long long st = s * (N - 1) + t;
+  load_row<kNU>(d.U, U + st * kNU);
+  if (FB) {
+    load_row<kNX>(d.X, X + (s * N + t) * kNX);
+    load_row<kNU * kNX>(d.K, K + st * kNU * kNX);
+    load_row<kNU>(d.k, k + st * kNU);
+  }
+}
+
+// f = Quadrotor.dynamics(x, u)
+__device__ __forceinline__ void dynamics(const Consts& c, const Real* x,
+                                         const Real* u, Real* f) {
+  const Real px = x[6], py = x[7], pz = x[8];
+  const Real wx = x[9], wy = x[10], wz = x[11];
+  // rotor forces clamp to >= 0; NaN passes as torch.maximum passes it
+  Real F[kNU];
+#pragma unroll
+  for (int i = 0; i < kNU; ++i) {
+    const Real v = c.kf * u[i];
+    F[i] = v < Real(0) ? Real(0) : v;
+  }
+  const Real tx = c.arm * (F[1] - F[3]);
+  const Real ty = c.arm * (F[2] - F[0]);
+  const Real tz = ((c.km * u[0] - c.km * u[1]) + c.km * u[2]) - c.km * u[3];
+  const Real thrust = ((F[0] + F[1]) + F[2]) + F[3];
+  // third column of R(p) = I + (8 [p]x^2 + 4 (1 - p'p) [p]x) / (1 + p'p)^2
+  const Real pp = (px * px + py * py) + pz * pz;
+  const Real one_pp = Real(1) + pp;
+  const Real den = one_pp * one_pp;
+  const Real s4 = Real(4) * (Real(1) - pp);
+  const Real q0 = (Real(8) * (px * pz) + s4 * py) / den;
+  const Real q1 = (Real(8) * (py * pz) - s4 * px) / den;
+  const Real q2 = Real(1) + Real(8) * (pz * pz - pp) / den;
+  f[0] = x[3];
+  f[1] = x[4];
+  f[2] = x[5];
+  f[3] = (q0 * thrust) / c.mass;
+  f[4] = (q1 * thrust) / c.mass;
+  f[5] = (c.mass * -c.g + q2 * thrust) / c.mass;
+  // pdot = ((1 + p'p) / 4) (omega + 2 ([p]x^2 omega + p x omega) / (1 + p'p))
+  const Real pw = (px * wx + py * wy) + pz * wz;
+  const Real quarter = one_pp / Real(4);
+  f[6] = quarter * (wx + Real(2) * ((px * pw - pp * wx) + (py * wz - pz * wy))
+                                / one_pp);
+  f[7] = quarter * (wy + Real(2) * ((py * pw - pp * wy) + (pz * wx - px * wz))
+                                / one_pp);
+  f[8] = quarter * (wz + Real(2) * ((pz * pw - pp * wz) + (px * wy - py * wx))
+                                / one_pp);
+  // omega' = (tau - omega x J omega) / J
+  const Real hx = c.jx * wx, hy = c.jy * wy, hz = c.jz * wz;
+  f[9] = (tx - (wy * hz - wz * hy)) / c.jx;
+  f[10] = (ty - (wz * hx - wx * hz)) / c.jy;
+  f[11] = (tz - (wx * hy - wy * hx)) / c.jz;
+}
+
+// x <- RK4(x, u), as System.discrete_dynamics takes it
+__device__ __forceinline__ void rk4(const Consts& c, Real* x, const Real* u) {
+  Real kk[kNX], xs[kNX], acc[kNX];
+  dynamics(c, x, u, kk);
+#pragma unroll
+  for (int i = 0; i < kNX; ++i) {
+    kk[i] = c.dt * kk[i];
+    acc[i] = kk[i];
+    xs[i] = x[i] + Real(0.5) * kk[i];
+  }
+  dynamics(c, xs, u, kk);
+#pragma unroll
+  for (int i = 0; i < kNX; ++i) {
+    kk[i] = c.dt * kk[i];
+    acc[i] = acc[i] + Real(2) * kk[i];
+    xs[i] = x[i] + Real(0.5) * kk[i];
+  }
+  dynamics(c, xs, u, kk);
+#pragma unroll
+  for (int i = 0; i < kNX; ++i) {
+    kk[i] = c.dt * kk[i];
+    acc[i] = acc[i] + Real(2) * kk[i];
+    xs[i] = x[i] + kk[i];
+  }
+  dynamics(c, xs, u, kk);
+#pragma unroll
+  for (int i = 0; i < kNX; ++i) {
+    acc[i] = acc[i] + c.dt * kk[i];
+    x[i] = x[i] + acc[i] / Real(6);
+  }
+}
+
+template <bool FB>
+__global__ void __launch_bounds__(kBlock)
+rollout_kernel(const Real* __restrict__ x0, long long x0_stride,
+               const Real* __restrict__ X, const Real* __restrict__ U,
+               const Real* __restrict__ K, const Real* __restrict__ k,
+               const Real* __restrict__ alpha, Real* __restrict__ Xn,
+               Real* __restrict__ Un, int S, int C, int N, Consts c) {
+  const long long lane = (long long)blockIdx.x * kBlock + threadIdx.x;
+  if (lane >= (long long)S * C) return;
+  const long long s = lane / C;
+  Real x[kNX];
+  load_row<kNX>(x, x0 + s * x0_stride);
+  const Real a = FB ? __ldg(alpha + lane) : Real(0);
+  Real* xo = Xn + lane * N * kNX;
+  Real* uo = Un == nullptr ? nullptr : Un + lane * (N - 1) * kNU;
+  store_row<kNX>(xo, x);
+  Knot d;
+  if (N > 1) load_knot<FB>(d, X, U, K, k, s, 0, N);
+#pragma unroll 1
+  for (int t = 0; t < N - 1; ++t) {
+    Real u[kNU];
+#pragma unroll
+    for (int i = 0; i < kNU; ++i) {
+      if (FB) {
+        Real kdx = Real(0);
+#pragma unroll
+        for (int j = 0; j < kNX; ++j)
+          kdx = kdx + d.K[i * kNX + j] * (x[j] - d.X[j]);
+        u[i] = (d.U[i] - kdx) - a * d.k[i];
+      } else {
+        u[i] = d.U[i];
+      }
+    }
+    // knot t+1's operands are in flight while knot t integrates
+    if (t + 1 < N - 1) load_knot<FB>(d, X, U, K, k, s, t + 1, N);
+    rk4(c, x, u);
+    store_row<kNX>(xo + (t + 1) * kNX, x);
+    if (uo != nullptr) store_row<kNU>(uo + t * kNU, u);
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// sizeof(Real), nx and nu, so the wrapper can check the library it loaded
+int dcol_rollout_layout(int* out) {
+  out[0] = (int)sizeof(Real);
+  out[1] = kNX;
+  out[2] = kNU;
+  return 0;
+}
+
+// Roll S x C lanes out over N knots (see the top of this file); K null is
+// the open loop, which reads neither X, k nor alpha.  consts: mass, J (3),
+// gravity, arm length, KF, KM, dt.  Returns cudaGetLastError() after the
+// launch.
+int dcol_rollout(const void* x0, long long x0_stride, const void* X,
+                 const void* U, const void* K, const void* k,
+                 const void* alpha, void* Xn, void* Un, int S, int C, int N,
+                 const double* consts, void* stream) {
+  const long long lanes = (long long)S * C;
+  if (lanes <= 0 || N <= 0) return 0;
+  const Consts c{(Real)consts[0], (Real)consts[1], (Real)consts[2],
+                 (Real)consts[3], (Real)consts[4], (Real)consts[5],
+                 (Real)consts[6], (Real)consts[7], (Real)consts[8]};
+  const unsigned blocks = (unsigned)((lanes + kBlock - 1) / kBlock);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (K != nullptr) {
+    rollout_kernel<true><<<blocks, kBlock, 0, st>>>(
+        (const Real*)x0, x0_stride, (const Real*)X, (const Real*)U,
+        (const Real*)K, (const Real*)k, (const Real*)alpha, (Real*)Xn,
+        (Real*)Un, S, C, N, c);
+  } else {
+    rollout_kernel<false><<<blocks, kBlock, 0, st>>>(
+        (const Real*)x0, x0_stride, nullptr, (const Real*)U, nullptr,
+        nullptr, nullptr, (Real*)Xn, (Real*)Un, S, C, N, c);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -11,8 +11,10 @@ loops over masks:
   * the outer loop runs while any scenario is active; inactive scenarios
     keep their state (selection by mask) and cost no PDIP work (their solver
     lanes are skipped);
-  * the Riccati recursion and the rollouts are Python loops over knots,
-    batched over scenarios (and line-search candidates);
+  * the Riccati recursion is a Python loop over knots, batched over
+    scenarios; so are the rollouts (over scenarios and line-search
+    candidates), except on the card for a system that names a rollout
+    kernel (the quadrotor), where each is one launch;
   * the dynamics Jacobians and envelope gradients are forward-mode
     (``torch.func.jvp``) with the tangent directions as a leading batch dim;
     a system built with ``fd_jacobians=True`` takes the reference's forward
@@ -30,8 +32,9 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from dcol_tpu_torch.ops import chol
+from dcol_tpu_torch.ops import chol, rollout_cuda
 from dcol_tpu_torch.systems.base import jvp, scenario_view
+from dcol_tpu_torch.utils import trace
 from dcol_tpu_torch.utils.trace import span
 
 # forward-difference step of the reference's dynamics Jacobians
@@ -304,25 +307,60 @@ def backward_pass(sys, params, X, U, mu, mux, lambd, rho, reg, warm=None,
 # Forward pass (backtracking line search), ALTRO.py:183-239
 # ---------------------------------------------------------------------------
 
+def uses_rollout_kernel(sys, t) -> bool:
+    """Whether a rollout of ``sys`` over tensor ``t`` runs as one kernel
+    launch (:mod:`dcol_tpu_torch.ops.rollout_cuda`): a CUDA tensor of a
+    system that names a rollout kernel.  Every other rollout runs the
+    loop."""
+    return t.is_cuda and sys.rollout_kernel is not None
+
+
+def _note_rollout(path: str) -> None:
+    if trace.recording():
+        trace.RECORDER.rollouts[path] += 1
+
+
 def rollout(sys, params, X, U, K, k, alpha):
     """Closed-loop rollouts for per-scenario candidate step sizes
-    alpha (S, C): returns Xn (S, C, N, nx), Un (S, C, N-1, nu)."""
+    alpha (S, C): returns Xn (S, C, N, nx), Un (S, C, N-1, nu).  One
+    kernel launch on the card for a system that names a rollout kernel
+    (which raises if it cannot run), else :func:`rollout_loop`."""
     with span("altro.rollout"):
-        x = X[:, None, 0].expand(alpha.shape + X.shape[-1:])
-        a = alpha[..., None]
-        xs, us = [x], []
-        for t in range(sys.N - 1):
-            u = (U[:, None, t]
-                 - (K[:, None, t] @ (x - X[:, None, t])[..., None])[..., 0]
-                 - a * k[:, None, t])
-            x = sys.discrete_dynamics(params, x, u)
-            xs.append(x)
-            us.append(u)
-        return torch.stack(xs, dim=2), torch.stack(us, dim=2)
+        if uses_rollout_kernel(sys, X):
+            _note_rollout("kernel")
+            return rollout_cuda.rollout_cuda(sys, X, U, K, k, alpha)
+        _note_rollout("loop")
+        return rollout_loop(sys, params, X, U, K, k, alpha)
+
+
+def rollout_loop(sys, params, X, U, K, k, alpha):
+    """The plain version of :func:`rollout`: a Python loop over knots."""
+    x = X[:, None, 0].expand(alpha.shape + X.shape[-1:])
+    a = alpha[..., None]
+    xs, us = [x], []
+    for t in range(sys.N - 1):
+        u = (U[:, None, t]
+             - (K[:, None, t] @ (x - X[:, None, t])[..., None])[..., 0]
+             - a * k[:, None, t])
+        x = sys.discrete_dynamics(params, x, u)
+        xs.append(x)
+        us.append(u)
+    return torch.stack(xs, dim=2), torch.stack(us, dim=2)
 
 
 def initial_rollout(sys, params, x0, U):
-    """Open-loop rollout from x0 (S, nx) under U (S, N-1, nu)."""
+    """Open-loop rollout from x0 (S, nx) under U (S, N-1, nu): one kernel
+    launch where :func:`rollout` takes one, else
+    :func:`initial_rollout_loop`."""
+    if uses_rollout_kernel(sys, x0):
+        _note_rollout("kernel")
+        return rollout_cuda.initial_rollout_cuda(sys, x0, U)
+    _note_rollout("loop")
+    return initial_rollout_loop(sys, params, x0, U)
+
+
+def initial_rollout_loop(sys, params, x0, U):
+    """The plain version of :func:`initial_rollout`."""
     xs = [x0]
     for t in range(sys.N - 1):
         xs.append(sys.discrete_dynamics(params, xs[-1], U[:, t]))

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Tuple
+from typing import ClassVar, Optional, Tuple
 
 import torch
 import torch.func
@@ -260,6 +260,9 @@ class System:
     dt: float
     scene: CollisionScene
     fd_jacobians: bool = False
+    # The hand-written kernel that runs this system's rollouts on the card
+    # (``solver.altro.rollout``; ``ops.rollout_cuda``), or None: the loop.
+    rollout_kernel: ClassVar[Optional[str]] = None
 
     @property
     def ncx(self) -> int:

@@ -61,6 +61,9 @@ class Quadrotor(System):
     def pose_jacobian_rows(self, x, d_r, d_p):
         return full_pose_jacobian_rows(self.nx, d_r, d_p)
 
+    # csrc/rollout.cu computes dynamics() above with the module's constants
+    rollout_kernel = "quadrotor"
+
 
 def linear_interp_ref(dt, x0, xg, N):
     """Position/attitude linear interpolation reference (reference

@@ -13,7 +13,8 @@ profiler, :func:`span` is one flag check that returns the shared no-op
     host-device synchronisation it reports is counted under (innermost
     span, ``file:line`` of the port's frame that caused it) instead of
     printed;
-  * ``CollisionScene._solve`` notes each conic batch (:meth:`Recorder.note_pdip`).
+  * ``CollisionScene._solve`` notes each conic batch (:meth:`Recorder.note_pdip`),
+    and ``solver.altro`` each rollout by path (:attr:`Recorder.rollouts`).
 
 The counts of the latest profiled stretch are in :data:`RECORDER`.  They
 are cleared at the first span entered under a profiler after one entered
@@ -84,6 +85,8 @@ class Recorder:
     ``syncs``: {(innermost span, ``file:line``): count} of blocking
     synchronisations, where ``file`` is relative to the package;
     ``sync_counted`` says whether the debug mode was on (a card present).
+    ``rollouts``: {path: count} of the solver's rollouts, ``"kernel"``
+    (one launch of ``ops.rollout_cuda``) or ``"loop"`` (the plain loop).
     ``pdip``: one dict per conic batch with B > 0: its layout ``nv``,
     ``n_ort``, ``s1``, ``s2``, ``B``, ``start`` (``cold``, ``warm`` or
     ``warm+skip``), and on the batch's device ``iters`` (its summed
@@ -94,11 +97,13 @@ class Recorder:
         self.syncs: collections.Counter = collections.Counter()
         self.sync_counted = False
         self.pdip: List[Dict] = []
+        self.rollouts: collections.Counter = collections.Counter()
 
     def clear(self):
         self.syncs.clear()
         self.sync_counted = False
         self.pdip.clear()
+        self.rollouts.clear()
 
     def note_pdip(self, c, lay, warm, skip, sol):
         """Note one conic batch: problems c (B, nv) of cone layout ``lay``

@@ -3,7 +3,8 @@ iteration of the f64 piano mover: nothing recorded and no profiler call
 without a profiler; the spans' nesting in an exported trace and the conic
 batches' counts under one; the counts of one profiled stretch only; the
 synchronisations counted by span and call site (CUDA's sync debug mode
-stood in for on the CPU); and, on a card, the count against the trace."""
+stood in for on the CPU); the rollouts by path; and, on a card, the count
+against the trace."""
 
 import inspect
 import json
@@ -132,6 +133,8 @@ def test_profiled_step_spans_and_conic_counts(piano, monkeypatch, tmp_path):
     assert sum(t["batches"] for t in totals.values()) == len(seen)
     assert not trace.RECORDER.sync_counted      # no card: no sync count
     assert trace.RECORDER.layer_syncs("solver") is None
+    # the initial rollout and one a rollout span, all the loop's on the CPU
+    assert trace.RECORDER.rollouts == {"loop": 1 + len(by("altro.rollout"))}
 
 
 def test_counts_of_the_latest_profiled_stretch_only(piano):
@@ -265,6 +268,8 @@ def test_card_syncs_match_the_trace(tmp_path):
     sites = {site for _, site in rec.syncs}
     assert {"systems/quadrotor.py:39", "systems/quadrotor.py:50"} <= sites
     assert len(rec.pdip) == pdip_cuda.launches - n0
+    # the quadrotor's rollouts run as the kernel on the card, none the loop
+    assert rec.rollouts["kernel"] > 0 and rec.rollouts["loop"] == 0
     assert cov["launches_in_spans"] >= 0.99 * cov["launches"]
     assert torch.cuda.get_sync_debug_mode() == 0
     print(json.dumps({"syncs": {f"{k[0]} {k[1]}": n
