@@ -1,8 +1,10 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases build,rollout] [--parent DIR]
 
-Phases, in order; any failure ends the run with a nonzero exit:
+Phases, in order (``--phases``: only those named, by the names the log
+prints, the device's always); any failure ends the run with a nonzero
+exit:
 
   1. device: require CUDA; print the card's name and power limit;
   2. build: compile every kernel specialisation the run uses, all at once
@@ -113,17 +115,23 @@ Phases, in order; any failure ends the run with a nonzero exit:
      scenario replicated as the main path's batch of 128 and as the
      piano's batch of 64 (tools/replicas.py), every state field equal
      across members;
- 16. rollout: the quadrotor's rollout kernel against its loop
-     (altro.rollout_loop) on the card, in float32 at S = 1024 with C = 1
-     and 4 candidates at N = 100 and 40, and in float64 at S = 64: each
-     state against the float64 RK4 step from its own previous state and
-     control, and each control against the feedback law, within
-     portbench's dyn_gap limit (2e-5 over 1 + |x|); the open loop
-     (initial_rollout) the same way; scenario 0 replicated in every row,
-     every row bitwise equal to scenario 0's own lanes; the kernel's time a
-     launch (CUDA events) beside its byte bound and the loop's time; the
-     launches counted against those made (phase 2 fails on float32
-     spills; phases 4 and 8 require the quadrotor's paths to launch it);
+ 16. rollout: the rollout kernel against its loop (altro.rollout_loop) on
+     the card, for each system that names it: the quadrotor in float32 at
+     S = 1024 with C = 1 and 4 candidates at N = 100 and 40, and in
+     float64 at S = 64; the piano mover in float32 at S = 4096 with C = 1
+     and 4 at N = 80, and in float64 at S = 64, C = 4: each state against
+     the float64 RK4 step from its own previous state and control, and
+     each control against the feedback law, within portbench's dyn_gap
+     limit (2e-5 over 1 + |x|); the open loop (initial_rollout) the same
+     way; scenario 0 replicated in every row, every row bitwise equal to
+     scenario 0's own lanes; the kernel's time a launch (CUDA events)
+     beside its byte bound and the loop's time; the launches counted
+     against those made.  With ``--parent DIR`` (a checkout of another
+     commit, e.g. unpacked by ``git archive``), the quadrotor's outputs,
+     closed and open loop, are held bitwise equal to that checkout's
+     kernel (csrc/rollout.cu built from DIR) on the same operands.  Phase
+     2 fails on float32 spills; phases 4 and 8 require the quadrotor's
+     paths to launch it;
   9. a JSON line of kernel results, then the last line
      {"ok": true, "device": {...}}.
 
@@ -132,6 +140,7 @@ before it and read just after.  A detailed record goes to
 chiprun_out/chip_smoke.json.
 """
 
+import argparse
 import contextlib
 import dataclasses
 import io
@@ -178,13 +187,20 @@ REPLICA_ITERATIONS = 3
 JAX_COLD_ITERS = 1_270_400
 COLD_ITERS_RTOL = {"plain": 1e-3, "kernel": 5e-3}
 NAN_MEMBER = 9  # shares its warp with 3 healthy teams of 8
-# phase 16: the rollout kernel's shapes (dtype, S, C, N): the cells' batch
-# with the probe's one candidate and a chunk's four, at the plan's horizon
-# and the MPC's; float64 at a small S.  Each state is held to the float64
-# RK4 step from its own previous state and control within portbench's
-# dyn_gap limit (limits/quad_*.json), each control to the feedback law
-ROLLOUT_SHAPES = ((F32, 1024, 1, 100), (F32, 1024, 4, 100),
-                  (F32, 1024, 1, 40), (F32, 1024, 4, 40), (F64, 64, 4, 100))
+# phase 16: the rollout kernel's shapes (system, dtype, S, C, N): each
+# cell's batch with the probe's one candidate and a chunk's four, at the
+# quadrotor's plan horizon and MPC horizon and the piano's horizon; float64
+# at a small S.  Each state is held to the float64 RK4 step from its own
+# previous state and control within portbench's dyn_gap limit
+# (limits/*.json), each control to the feedback law
+ROLLOUT_SHAPES = (("quadrotor", F32, 1024, 1, 100),
+                  ("quadrotor", F32, 1024, 4, 100),
+                  ("quadrotor", F32, 1024, 1, 40),
+                  ("quadrotor", F32, 1024, 4, 40),
+                  ("quadrotor", F64, 64, 4, 100),
+                  ("piano_mover", F32, 4096, 1, 80),
+                  ("piano_mover", F32, 4096, 4, 80),
+                  ("piano_mover", F64, 64, 4, 80))
 ROLLOUT_DYN_GAP = 2e-5
 ROLLOUT_REPS = 20
 
@@ -321,7 +337,8 @@ def phase_build(run):
     specs = list(dict.fromkeys(specs))
     jobs = [lambda a=a: pdip_cuda.build(*a) for a in specs]
     jobs += [lambda d=d: fma_peak.build(d) for d in (F32, F64)]
-    jobs += [lambda d=d: rollout_cuda.build(d) for d in (F32, F64)]
+    jobs += [lambda sy=sy, d=d: rollout_cuda.build(sy, d)
+             for sy in rollout_cuda.SYSTEMS for d in (F32, F64)]
     t0 = time.perf_counter()
     builds = nvcc_build.run_parallel(jobs)
     build_wall = time.perf_counter() - t0
@@ -334,6 +351,9 @@ def phase_build(run):
             _, dt, arith, nv, n_ort, s1, s2, team = b.key
             name = (f"pdip {str(dt)[6:]} arithmetic={str(arith)[6:]} nv={nv} "
                     f"n_ort={n_ort} s1={s1} s2={s2} team={team}")
+        elif b.key[0] == "rollout":
+            _, system, dt = b.key
+            name = f"rollout {system} {str(dt)[6:]}"
         else:
             dt = b.key[1]
             name = f"{b.key[0]} {str(dt)[6:]}"
@@ -1445,16 +1465,17 @@ def phase_hard_lanes(run):
 
 # -- 16. rollout -------------------------------------------------------------
 
-def rollout_inputs(S, C, N, dtype, dev, seed=0):
+def rollout_inputs(system, S, C, N, dtype, dev, seed=0):
     """(system, params, X, U, K, k, alpha) of the solver's first line
-    search on S quadrotor scenarios at N knots: the initial state of
+    search on S scenarios of ``system`` at N knots: the initial state of
     perturbed initial states under the pinned controls, the gains of its
     backward pass, and the first C candidates 1, 1/2, ..."""
     from dcol_tpu_torch.parallel.batch import perturb_scenarios
     from dcol_tpu_torch.solver import altro
-    from dcol_tpu_torch.systems import quadrotor
+    from dcol_tpu_torch.systems import piano_mover, quadrotor
 
-    sys_, params, X0, U0, cfg = quadrotor.make_problem(dtype, dev, N=N)
+    mod = {"quadrotor": quadrotor, "piano_mover": piano_mover}[system]
+    sys_, params, X0, U0, cfg = mod.make_problem(dtype, dev, N=N)
     pb, xb, ub = perturb_scenarios(params, X0, U0, n=S, seed=seed,
                                    x0_sigma=0.02)
     st = altro.make_initial_state(sys_, pb, cfg, xb, ub)
@@ -1480,11 +1501,60 @@ def rollout_gaps(sys_, pb, X, U, K, k, alpha, Xn, Un):
     return max(rel(Xn[:, :, 1:], step), first), rel(Un, law)
 
 
-def rollout_bytes(S, C, N, itemsize):
+def rollout_bytes(S, C, N, nx, nu, itemsize):
     """Bytes a closed-loop rollout reads once and writes once."""
-    reads = S * N * 12 + S * (N - 1) * (4 + 48 + 4) + S * C
-    writes = S * C * (N * 12 + (N - 1) * 4)
+    reads = S * N * nx + S * (N - 1) * (2 * nu + nu * nx) + S * C
+    writes = S * C * (N * nx + (N - 1) * nu)
     return (reads + writes) * itemsize
+
+
+def parent_rollout(parent, dtype):
+    """``dcol_rollout`` of the quadrotor's kernel as the checkout
+    ``parent`` builds it: its csrc/rollout.cu, with the defines of a
+    checkout whose source takes only DCOL_T (the parent of the
+    system-parameterised kernel) or DCOL_T and DCOL_SYSTEM."""
+    import ctypes
+
+    from dcol_tpu_torch.ops import nvcc_build
+
+    src = os.path.join(parent, "dcol_tpu_torch", "csrc", "rollout.cu")
+    t = {F32: "float", F64: "double"}[dtype]
+    with open(src) as f:
+        defines = [f"-DDCOL_T={t}"] + (
+            ["-DDCOL_SYSTEM=Quadrotor"] if "DCOL_SYSTEM" in f.read() else [])
+    b = nvcc_build.build(("rollout-parent", dtype), src,
+                         f"rollout_parent_{t}", defines)
+
+    def bind(lib):
+        lib.dcol_rollout.argtypes = (
+            [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 7
+            + [ctypes.c_int] * 3
+            + [ctypes.POINTER(ctypes.c_double), ctypes.c_void_p])
+        lib.dcol_rollout.restype = ctypes.c_int
+
+    return nvcc_build.load(b, bind).dcol_rollout
+
+
+def bits_of_parent(run, sys_, dtype, X, U, K, k, alpha, Xk, Uk, Xo):
+    """Whether the parent's kernel gives Xk, Uk (closed loop) and Xo (open
+    loop) bitwise on the same operands."""
+    from dcol_tpu_torch.ops import rollout_cuda
+
+    fn = parent_rollout(run.parent, dtype)
+    (S, N, nx), C = X.shape, alpha.shape[1]
+    ops = rollout_cuda.closed_loop_operands(X, U, K, k, alpha)
+    Xp, Up = torch.empty_like(Xk), torch.empty_like(Uk)
+    check(fn(*rollout_cuda.launch_args(sys_, X, N * nx, ops, Xp, Up, S, C,
+                                       N)) == 0, "parent rollout launch")
+    x0, Uc = rollout_cuda.open_loop_operands(X[:, 0], U)
+    Xpo = torch.empty_like(Xo)
+    check(fn(*rollout_cuda.launch_args(sys_, x0, nx,
+                                       (None, Uc, None, None, None), Xpo,
+                                       None, S, 1, N)) == 0,
+          "parent open-loop rollout launch")
+    torch.cuda.synchronize()
+    return bool(torch.equal(Xp, Xk) and torch.equal(Up, Uk)
+                and torch.equal(Xpo, Xo))
 
 
 def phase_rollout(run):
@@ -1495,9 +1565,10 @@ def phase_rollout(run):
     dev = run.dev
     calls = got = 0
     rows = run.record["rollout"] = []
-    for dtype, S, C, N in ROLLOUT_SHAPES:
-        key = f"{str(dtype)[6:]} S={S} C={C} N={N}"
-        sys_, pb, X, U, K, k, alpha = rollout_inputs(S, C, N, dtype, dev)
+    for system, dtype, S, C, N in ROLLOUT_SHAPES:
+        key = f"{system} {str(dtype)[6:]} S={S} C={C} N={N}"
+        sys_, pb, X, U, K, k, alpha = rollout_inputs(system, S, C, N, dtype,
+                                                     dev)
         n0 = rollout_cuda.launches
         Xk, Uk = rollout_cuda.rollout_cuda(sys_, X, U, K, k, alpha)
         Xl, Ul = altro.rollout_loop(sys_, pb, X, U, K, k, alpha)
@@ -1522,6 +1593,10 @@ def phase_rollout(run):
         gap_o, _ = rollout_gaps(
             sys_, pb, X, U, K * 0, k * 0, alpha[:, :1], Xo[:, None],
             U[:, None])
+        parent_bits = None
+        if run.parent and system == "quadrotor":
+            parent_bits = bits_of_parent(run, sys_, dtype, X, U, K, k,
+                                         alpha, Xk, Uk, Xo)
         ms, _ = roofline.time_launch(
             lambda: rollout_cuda.rollout_cuda(sys_, X, U, K, k, alpha),
             reps=ROLLOUT_REPS)
@@ -1531,20 +1606,21 @@ def phase_rollout(run):
         altro.rollout_loop(sys_, pb, X, U, K, k, alpha)
         torch.cuda.synchronize()
         loop_ms = 1e3 * (time.perf_counter() - t0)
-        nbytes = rollout_bytes(S, C, N, X.element_size())
+        nbytes = rollout_bytes(S, C, N, sys_.nx, sys_.nu, X.element_size())
         bound_ms = 1e3 * nbytes / roofline.PEAK_BYTES
-        row = dict(dtype=str(dtype)[6:], S=S, C=C, N=N, dyn_gap=gap_x,
-                   control_gap=gap_u, loop_dyn_gap=gap_loop,
+        row = dict(system=system, dtype=str(dtype)[6:], S=S, C=C, N=N,
+                   dyn_gap=gap_x, control_gap=gap_u, loop_dyn_gap=gap_loop,
                    open_loop_dyn_gap=gap_o, vs_loop=vs_loop,
-                   replicas_equal=same, ms=ms, loop_ms=loop_ms,
-                   bytes=nbytes, bound_ms=bound_ms,
+                   replicas_equal=same, parent_bitwise=parent_bits, ms=ms,
+                   loop_ms=loop_ms, bytes=nbytes, bound_ms=bound_ms,
                    of_bound=bound_ms / ms)
         rows.append(row)
         log(f"[rollout] {key}: dyn gap kernel {gap_x:.3e} (loop "
             f"{gap_loop:.3e}, open loop {gap_o:.3e}), control gap "
             f"{gap_u:.3e}, kernel vs loop {vs_loop:.3e}; replicas equal "
-            f"{same}; kernel {ms:.4f} ms a launch, loop {loop_ms:.1f} ms; "
-            f"bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB), "
+            f"{same}; bitwise the parent's {parent_bits}; kernel "
+            f"{ms:.4f} ms a launch, loop {loop_ms:.1f} ms; bound "
+            f"{bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB), "
             f"{100 * bound_ms / ms:.2f}% of it")
         for name, gap in (("state", gap_x), ("control", gap_u),
                           ("open-loop state", gap_o)):
@@ -1552,14 +1628,27 @@ def phase_rollout(run):
                   f"rollout {key}: {name} gap {gap:.3e} over "
                   f"{ROLLOUT_DYN_GAP}")
         check(same, f"rollout {key}: replicated scenarios part")
+        check(parent_bits is not False,
+              f"rollout {key}: not bitwise the parent's kernel")
         got += rollout_cuda.launches - n0
         del X, U, K, k, alpha, Xk, Uk, Xl, Ul, Xr, Ur, Xo, rep
     log(f"[rollout] launches counted {got}, made {calls}")
     check(got == calls, f"rollout launches counted {got}, made {calls}")
 
 
+def rollout_key(r):
+    return f"{r['system']} {r['dtype']} S={r['S']} C={r['C']} N={r['N']}"
 
-def main():
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated phase names (as the log prints "
+                         "them): run only these")
+    ap.add_argument("--parent", default=None,
+                    help="a checkout of another commit: phase 16 holds the "
+                         "quadrotor's rollouts bitwise to its kernel")
+    args = ap.parse_args(argv)
     # -- 1. device -----------------------------------------------------------
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available; this run needs an "
@@ -1578,44 +1667,59 @@ def main():
     import dcol_tpu_torch  # noqa: F401  (sets full-f32 matmul precision)
 
     run = Run(dev, smi)
+    run.parent = args.parent
+    phases = (phase_build, phase_pdip, phase_quadrotor, phase_roofline,
+              phase_proximity, phase_cone, phase_mpc, phase_distributed,
+              phase_blocked_mesh, phase_profile, phase_cli, phase_latency,
+              phase_hard_lanes, phase_rollout)
+    if args.phases:
+        names = args.phases.split(",")
+        unknown = set(names) - {p.__name__[6:] for p in phases}
+        check(not unknown, f"no phases {sorted(unknown)}")
+        phases = [p for p in phases if p.__name__[6:] in names]
     t0 = time.perf_counter()
-    for phase in (phase_build, phase_pdip, phase_quadrotor, phase_roofline,
-                  phase_proximity, phase_cone, phase_mpc, phase_distributed,
-                  phase_blocked_mesh, phase_profile, phase_cli,
-                  phase_latency, phase_hard_lanes, phase_rollout):
+    for phase in phases:
         t = time.perf_counter()
         phase(run)
         log(f"[phase] {phase.__name__[6:]}: {time.perf_counter() - t:.1f} s")
     run.record["total_s"] = time.perf_counter() - t0
 
     # -- 9. results --------------------------------------------------------
-    fma = run.record["fma_peak"]["float32"]
-    pdip = run.record["pdip"]
-    pdip_err = max(pdip["max_abs_err"], run.record["latency"]["max_abs_err"])
-    kernels = {"kernels": [
-        {"name": "pdip", "route": "cuda",
-         "source": "dcol_tpu_torch/csrc/pdip.cu", "replaces": PDIP_TPU_KERNEL,
-         "launches": run.launches("pdip"), "max_abs_err": pdip_err,
-         "ms": pdip["ms"], "plain_ms": pdip["plain_ms"],
-         "bound_ms": pdip["bound_ms"], "bound_by": pdip["bound_by"],
-         "library_ms": None},
-        {"name": "fma_peak", "route": "cuda",
-         "source": "dcol_tpu_torch/csrc/fma_peak.cu",
-         "replaces": FMA_TPU_KERNEL, "launches": run.launches("fma_peak"),
-         "max_abs_err": fma["max_abs_err"], "ms": fma["ms"],
-         "plain_ms": fma["plain_ms"], "bound_ms": fma["bound_ms"],
-         "bound_by": fma["bound_by"], "library_ms": None},
-        {"name": "rollout", "route": "cuda",
-         "source": "dcol_tpu_torch/csrc/rollout.cu",
-         "replaces": ROLLOUT_TPU_KERNEL, "launches": run.launches("rollout"),
-         "max_abs_err": None,
-         "ms": {f"{r['dtype']} S={r['S']} C={r['C']} N={r['N']}": r["ms"]
-                for r in run.record["rollout"]},
-         "plain_ms": {f"{r['dtype']} S={r['S']} C={r['C']} N={r['N']}":
-                      r["loop_ms"] for r in run.record["rollout"]},
-         "bound_ms": {f"{r['dtype']} S={r['S']} C={r['C']} N={r['N']}":
-                      r["bound_ms"] for r in run.record["rollout"]},
-         "bound_by": "bytes", "library_ms": None}]}
+    rec = run.record
+    kernels = {"kernels": []}
+    if "pdip" in rec and "latency" in rec:
+        pdip = rec["pdip"]
+        kernels["kernels"].append(
+            {"name": "pdip", "route": "cuda",
+             "source": "dcol_tpu_torch/csrc/pdip.cu",
+             "replaces": PDIP_TPU_KERNEL, "launches": run.launches("pdip"),
+             "max_abs_err": max(pdip["max_abs_err"],
+                                rec["latency"]["max_abs_err"]),
+             "ms": pdip["ms"], "plain_ms": pdip["plain_ms"],
+             "bound_ms": pdip["bound_ms"], "bound_by": pdip["bound_by"],
+             "library_ms": None})
+    if "fma_peak" in rec:
+        fma = rec["fma_peak"]["float32"]
+        kernels["kernels"].append(
+            {"name": "fma_peak", "route": "cuda",
+             "source": "dcol_tpu_torch/csrc/fma_peak.cu",
+             "replaces": FMA_TPU_KERNEL, "launches": run.launches("fma_peak"),
+             "max_abs_err": fma["max_abs_err"], "ms": fma["ms"],
+             "plain_ms": fma["plain_ms"], "bound_ms": fma["bound_ms"],
+             "bound_by": fma["bound_by"], "library_ms": None})
+    if "rollout" in rec:
+        kernels["kernels"].append(
+            {"name": "rollout", "route": "cuda",
+             "source": "dcol_tpu_torch/csrc/rollout.cu",
+             "replaces": ROLLOUT_TPU_KERNEL,
+             "launches": run.launches("rollout"),
+             "max_abs_err": None,
+             "ms": {rollout_key(r): r["ms"] for r in rec["rollout"]},
+             "plain_ms": {rollout_key(r): r["loop_ms"]
+                          for r in rec["rollout"]},
+             "bound_ms": {rollout_key(r): r["bound_ms"]
+                          for r in rec["rollout"]},
+             "bound_by": "bytes", "library_ms": None})
     run.record["kernels"] = kernels["kernels"]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:

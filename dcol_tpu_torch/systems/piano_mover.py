@@ -2,7 +2,8 @@
 wall polytopes.  Port of ``dcol_tpu/systems/piano_mover.py`` with the same
 hyperparameters and pinned initial controls.
 
-State x = [rx, ry, vx, vy, theta, omega]; control u = [ax, ay, 100*domega].
+State x = [rx, ry, vx, vy, theta, omega]; control
+u = [ax, ay, OMEGA_CONTROL_SCALE * domega].
 The robot's planar heading maps to the MRP p = [0, 0, tan(theta/4)] with the
 chain rule dp/dtheta = e3 / (4 cos^2(theta/4)).
 """
@@ -20,13 +21,15 @@ from dcol_tpu_torch.solver.altro import AltroConfig
 from dcol_tpu_torch.systems.base import CollisionScene, ProximityOptions, System
 
 _DATA = os.path.join(os.path.dirname(__file__), "data", "fixtures.npz")
+# the third control is the angular acceleration times this scale
+OMEGA_CONTROL_SCALE = 100.0
 
 
 @dataclasses.dataclass(frozen=True)
 class PianoMover(System):
     def dynamics(self, params, x, u):
         return torch.cat([x[..., 2:4], u[..., :2], x[..., 5:6],
-                          u[..., 2:3] / 100.0], dim=-1)
+                          u[..., 2:3] / OMEGA_CONTROL_SCALE], dim=-1)
 
     def robot_pose(self, x):
         r = torch.cat([x[..., :2], torch.zeros_like(x[..., :1])], dim=-1)
@@ -40,6 +43,9 @@ class PianoMover(System):
         return torch.cat([-d_r[..., :2], z, z,
                           (-d_p[..., 2] * dp_dtheta[..., None])[..., None], z],
                          dim=-1)
+
+    # csrc/rollout.cu computes dynamics() above with OMEGA_CONTROL_SCALE
+    rollout_kernel = "piano_mover"
 
 
 def make_system(pdip_tol: float = 1e-6, pdip_iters: int = 30,

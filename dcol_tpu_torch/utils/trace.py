@@ -14,7 +14,9 @@ profiler, :func:`span` is one flag check that returns the shared no-op
     span, ``file:line`` of the port's frame that caused it) instead of
     printed;
   * ``CollisionScene._solve`` notes each conic batch (:meth:`Recorder.note_pdip`),
-    and ``solver.altro`` each rollout by path (:attr:`Recorder.rollouts`).
+    ``solver.altro`` each rollout by path (:attr:`Recorder.rollouts`), and
+    ``ops.rollout_cuda`` each launch of the rollout kernel with a pair of
+    CUDA events around it (:attr:`Recorder.rollout_launches`).
 
 The counts of the latest profiled stretch are in :data:`RECORDER`.  They
 are cleared at the first span entered under a profiler after one entered
@@ -87,6 +89,12 @@ class Recorder:
     ``sync_counted`` says whether the debug mode was on (a card present).
     ``rollouts``: {path: count} of the solver's rollouts, ``"kernel"``
     (one launch of ``ops.rollout_cuda``) or ``"loop"`` (the plain loop).
+    ``rollout_launches``: one dict per launch of the rollout kernel: its
+    ``system`` (the kernel's name), ``dtype`` (``"float32"`` or
+    ``"float64"``), ``S``, ``C``, ``N``, ``closed`` (the closed loop, or the
+    open one), and ``start`` and ``end``, CUDA events (timing) recorded
+    around it on its stream; ``start.elapsed_time(end)`` is its time in ms
+    once the stream has passed ``end``.
     ``pdip``: one dict per conic batch with B > 0: its layout ``nv``,
     ``n_ort``, ``s1``, ``s2``, ``B``, ``start`` (``cold``, ``warm`` or
     ``warm+skip``), and on the batch's device ``iters`` (its summed
@@ -98,12 +106,14 @@ class Recorder:
         self.sync_counted = False
         self.pdip: List[Dict] = []
         self.rollouts: collections.Counter = collections.Counter()
+        self.rollout_launches: List[Dict] = []
 
     def clear(self):
         self.syncs.clear()
         self.sync_counted = False
         self.pdip.clear()
         self.rollouts.clear()
+        self.rollout_launches.clear()
 
     def note_pdip(self, c, lay, warm, skip, sol):
         """Note one conic batch: problems c (B, nv) of cone layout ``lay``

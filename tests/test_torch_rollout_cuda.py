@@ -1,9 +1,10 @@
 """The rollout kernel's wrapper (``ops/rollout_cuda.py``) and the solver's
-dispatch to it, on the CPU with no card and no nvcc: the operands handed to
-the kernel, the shapes and dtypes it refuses, the constants it is passed
-(those of ``systems/quadrotor.py``), the library names, which systems name
-a kernel, and rollouts on CPU tensors, which stay the loop bit for bit.
-One test compares the kernel with the loop on a card and skips here."""
+dispatch to it, on the CPU with no card and no nvcc, for the quadrotor:
+the operands handed to the kernel, the shapes and dtypes it refuses, the
+constants it is passed (those of ``systems/quadrotor.py``), the library
+names, which systems name a kernel, and rollouts on CPU tensors, which stay
+the loop bit for bit.  One test compares the kernel with the loop on a card
+and skips here.  The piano mover's are in ``test_torch_rollout_piano.py``."""
 
 import dataclasses
 import types
@@ -143,7 +144,9 @@ def test_open_loop_refuses_shapes():
 
 def test_constants_are_the_quadrotor_modules(quad):
     """The kernel is passed mass, J, gravity, arm length, KF, KM from
-    systems/quadrotor.py and the system's dt, in the kernel's order."""
+    systems/quadrotor.py and the system's dt, in the kernel's order; the
+    piano's kernel its dt and OMEGA_CONTROL_SCALE; the cone names no kernel
+    and raises."""
     sys_ = quad[0]
     want = (quadrotor.MASS, *quadrotor.J_DIAG, quadrotor.GRAVITY,
             quadrotor.ARM_L, quadrotor.KF, quadrotor.KM, sys_.dt)
@@ -151,8 +154,11 @@ def test_constants_are_the_quadrotor_modules(quad):
     other = quadrotor.make_system(N=N, dt=0.05)
     assert rollout_cuda.constants(other)[-1] == 0.05
     piano = piano_mover.make_system()
+    assert rollout_cuda.constants(piano) == (
+        0.1, float(piano_mover.OMEGA_CONTROL_SCALE))
+    cone = cone_through_wall.make_system()
     with pytest.raises(ValueError, match="names rollout kernel None"):
-        rollout_cuda.constants(piano)
+        rollout_cuda.constants(cone)
 
 
 @pytest.mark.parametrize("loop", ["closed", "open"])
@@ -179,29 +185,34 @@ def test_launch_args_in_the_kernels_order(quad, loop, monkeypatch):
 
 
 def test_build_names_the_dtype(monkeypatch):
-    """One library per dtype, named and defined by it; nothing is compiled
-    here, and other dtypes raise."""
+    """One library per (system, dtype), named and defined by both; nothing
+    is compiled here, and other dtypes and systems raise."""
     seen = []
     monkeypatch.setattr(rollout_cuda.nvcc_build, "build",
                         lambda *a: seen.append(a) or a)
     for dt in (F32, F64):
-        rollout_cuda.build(dt)
+        rollout_cuda.build("quadrotor", dt)
     (k1, src, n1, d1), (k2, _, n2, d2) = seen
     assert src == rollout_cuda.SOURCE and src.endswith("csrc/rollout.cu")
-    assert (k1, n1, d1) == (("rollout", F32), "rollout_float",
-                            ["-DDCOL_T=float"])
-    assert (k2, n2, d2) == (("rollout", F64), "rollout_double",
-                            ["-DDCOL_T=double"])
+    assert (k1, n1, d1) == (("rollout", "quadrotor", F32),
+                            "rollout_quadrotor_float",
+                            ["-DDCOL_T=float", "-DDCOL_SYSTEM=Quadrotor"])
+    assert (k2, n2, d2) == (("rollout", "quadrotor", F64),
+                            "rollout_quadrotor_double",
+                            ["-DDCOL_T=double", "-DDCOL_SYSTEM=Quadrotor"])
     with pytest.raises(TypeError, match="float32/float64"):
-        rollout_cuda.build(torch.bfloat16)
+        rollout_cuda.build("quadrotor", torch.bfloat16)
+    with pytest.raises(ValueError, match="no specialisation"):
+        rollout_cuda.build("coneThroughWall", F32)
 
 
 @pytest.mark.parametrize("mod, kernel", [
-    (quadrotor, "quadrotor"), (piano_mover, None), (cone_through_wall, None),
+    (quadrotor, "quadrotor"), (piano_mover, "piano_mover"),
+    (cone_through_wall, None),
 ])
 def test_systems_name_their_rollout_kernel(mod, kernel):
-    """The quadrotor names its kernel; the piano mover and the cone name
-    none and keep the loop on every device; the name is no dataclass
+    """The quadrotor and the piano mover name their kernels; the cone names
+    none and keeps the loop on every device; the name is no dataclass
     field."""
     sys_ = mod.make_system()
     assert sys_.rollout_kernel == kernel
